@@ -1,0 +1,109 @@
+"""The ported slice end to end on the CPU: experiments/e2e_large.main at
+cell=10 (K=300) against the JAX package's MMWEll search on the same state,
+and the port's independence from JAX."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import pytest
+
+from sig_sdp_mmw_torch.experiments.e2e_large import main as e2e_main
+from sig_sdp_mmw_torch.models.mmw import mmw_default_lanczos_m
+from sig_sdp_mmw_torch.ops import bcsr as tb
+from torch_jax_parity import one_torch_thread  # noqa: F401  (autouse)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NIT = 20
+
+
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    """The port's pipeline, counting calls of the flat SpMM's plain version
+    (the path a CPU tensor takes)."""
+    calls = []
+    ref = tb.bsr_spmm_flat_reference
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tb, "bsr_spmm_flat_reference",
+               lambda mat, V: calls.append(V.shape) or ref(mat, V))
+    out = str(tmp_path_factory.mktemp("e2e") / "run.json")
+    try:
+        rec = e2e_main(cell=10, nit=NIT, flat_group=4, device="cpu",
+                       out_path=out)
+    finally:
+        mp.undo()
+    return rec, calls, out
+
+
+def test_slice_is_feasible_and_went_through_flat_spmm(port_run):
+    rec, calls, _ = port_run
+    assert rec["K"] == 300 and rec["remainder"] == 0
+    assert rec["verified_feasible"]
+    assert rec["n_interf_vio"] == 0 and rec["n_asso_vio"] == 0
+    assert rec["operand_devices"] == ["cpu"]
+    # per iteration: 2 flat SpMMs per Lanczos step (S̃, S̃ᵀ) + 1 for xH
+    m = mmw_default_lanczos_m(0.05, NIT)
+    assert len(calls) == rec["n_probes"] * NIT * (2 * m + 1)
+    # padded rows; D_pad pinned by the first probe (Z=36 -> 2Z=72 -> 128)
+    assert set(calls) == {(384, 128)}
+
+
+def test_slice_record_has_the_jax_tool_keys(port_run):
+    rec, _, out = port_run
+    with open(os.path.join(REPO, "E2E_LARGE.json")) as f:
+        jax_rec = json.load(f)
+    heuristics = {"mgain", "mrand"}
+    assert set(jax_rec) - heuristics <= set(rec)
+    assert (set(jax_rec["tail_decomposition"]) - {"note"}
+            <= set(rec["tail_decomposition"]))
+    with open(out) as f:
+        assert json.load(f)["Z_fin"] == rec["Z_fin"]
+    assert os.path.exists(out.replace(".json", "_assignment.npz"))
+
+
+def test_slice_z_matches_jax_search(port_run):
+    """Z_fin within 1 of the JAX MMWEll search on the same state (the
+    rounding draws differ, hence the slack)."""
+    from sig_sdp_mmw_tpu.env.large import LargeEnv
+    from sig_sdp_mmw_tpu.models.mmw_ell import MMWEll
+    from sig_sdp_mmw_tpu.models.search import BinarySearchRelaxation
+
+    env = LargeEnv(10, 75e-4, seed=0)
+    S, Q, _ = env.generate_state_csr()
+    ell = env.generate_ell()
+    alg = MMWEll(nit=NIT, eta=0.05, use_bcsr=True, nattempt=10, seed=0)
+    alg.prepare(ell, S, Q, block=128, dtype=jnp.bfloat16,
+                store_transpose=True)
+    bs = BinarySearchRelaxation()
+    bs.feasibility_check_alg = alg
+    _, Z_jax, rem_jax = bs.run(ell)
+    rec = port_run[0]
+    assert rem_jax == 0
+    assert (rec["lb"], rec["ub"]) == bs.set_bounds(ell)
+    assert abs(rec["Z_fin"] - int(Z_jax)) <= 1
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter (this one has jax loaded by conftest)."""
+    code = ("import sys, sig_sdp_mmw_torch, sig_sdp_mmw_torch.models.mmw_ell,"
+            " sig_sdp_mmw_torch.experiments.e2e_large; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_port_sources_name_no_jax():
+    """Neither the package nor chip_smoke.py imports jax or the JAX
+    package, on any path (lazy imports included)."""
+    bad = re.compile(r"^\s*(import|from)\s+(jax|sig_sdp_mmw_tpu)\b")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "sig_sdp_mmw_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                assert not bad.match(line), f"{path}:{n}: {line.strip()}"
