@@ -6,7 +6,10 @@ state generation -> ELL state -> block operands -> degree bounds -> binary
 search over Z (each probe one sparse MMW solve followed by the native greedy
 rounding) -> independent feasibility verification -> BLER, plus the BLER
 tail decomposition.  With ``flat_group`` set (the default, 8) every S̃ and
-S̃ᵀ matvec goes through the flat block-CSR CUDA kernel on the card.
+S̃ᵀ matvec goes through the flat block-CSR CUDA kernel on the card; the
+association operator Q and the epilogue's block products go through the
+block-ELL CUDA kernel.  ``device`` defaults to ``"cuda"`` and raises
+without a card; pass ``"cpu"`` for the plain versions on the CPU.
 
 Returns the same record keys as the JAX tool; writes them as JSON (and the
 assignment beside it) only when given ``out_path``.
@@ -30,18 +33,14 @@ print = functools.partial(print, flush=True)
 
 def main(cell=183, rho=75e-4, seed=0, nit=150, eta=0.05, nattempt=10,
          block=128, out_path=None, use_bcsr=True, bf16=True, flat_group=8,
-         device=None):
+         device="cuda"):
     from sig_sdp_mmw_torch.env.large import LargeEnv
     from sig_sdp_mmw_torch.models.mmw_ell import MMWEll
     from sig_sdp_mmw_torch.models.rounding_ell import verify_assignment_csr
     from sig_sdp_mmw_torch.models.search import BinarySearchRelaxation
-    from sig_sdp_mmw_torch.utils.tensors import cuda_sync
+    from sig_sdp_mmw_torch.utils.tensors import cuda_sync, resolve_device
 
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
-    # The reference multiplies in full float32 (Precision.HIGHEST): no TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = resolve_device(device)
 
     rec = {"config": {"cell": cell, "rho": rho, "seed": seed, "nit": nit,
                       "eta": eta, "nattempt": nattempt, "block": block,
@@ -180,7 +179,8 @@ if __name__ == "__main__":
                     help="store BCSR blocks in float32 (default bfloat16)")
     ap.add_argument("--flat-group", type=int, default=8,
                     help="flat block-CSR group size; 0 = block-ELL matvecs")
-    ap.add_argument("--device", type=str, default=None)
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--out", type=str, default=None)
     a = ap.parse_args()
     main(a.cell, a.rho, a.seed, a.nit, a.eta, a.nattempt, a.block, a.out,

@@ -11,9 +11,13 @@ O(K^2) object kept implicit:
   factor comes from randomized subspace iteration on the implicit operator.
 
 With block operands whose ``s_flat`` is set, every S̃ and S̃ᵀ matvec goes
-through :func:`sig_sdp_mmw_torch.ops.bcsr.bsr_spmm_flat` (the CUDA kernel on
-the card).  The iteration loop is a Python loop; random draws come from a
-draws object (:mod:`sig_sdp_mmw_torch.utils.draws`).
+through :func:`sig_sdp_mmw_torch.ops.bcsr.bsr_spmm_flat` (the flat CUDA
+kernel on the card); without it, and for the association operator and the
+epilogue, block products go through :func:`sig_sdp_mmw_torch.ops.bcsr.
+bcsr_spmm` (the block-ELL CUDA kernel on the card).  The iteration loop is a
+Python loop that can run in segments passing a carry (the million-link
+driver's mode); random draws come from a draws object
+(:mod:`sig_sdp_mmw_torch.utils.draws`), by absolute iteration index.
 """
 
 from __future__ import annotations
@@ -70,7 +74,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
                   lanczos_m: Optional[int] = None, log_gap: bool = False,
                   gap_lanczos_m: int = 32, reorth: bool = True,
                   rsvd_iters: int = 3, bcsr=None, factorize: bool = True,
-                  gram_mode: str = "auto") -> MMWEllOutput:
+                  gram_mode: str = "auto",
+                  spmm_row_chunk: Optional[int] = None, carry_in=None,
+                  it_start: int = 0, num_steps: Optional[int] = None,
+                  return_carry: bool = False):
     """MMW feasibility solve for Z slots on the sparse state.
 
     ``ell``: :class:`sig_sdp_mmw_torch.core.ell.EllState`, or ``EllSlim``
@@ -78,12 +85,24 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     :class:`sig_sdp_mmw_torch.ops.bcsr.BcsrOperands` on ``ell``'s device;
     with it every per-iteration O(nnz*D) product is block-sparse.
     ``draws``: the random draws (``sketch``, ``omega``, ``gap``).
+    ``spmm_row_chunk``: block-rows per chunk of the block-ELL S̃/S̃ᵀ products
+    and of the epilogue's (bounds the plain versions' transients at large
+    K; the CUDA kernel needs no chunks).
 
     ``gram_mode`` — how the averaged primal accumulates on the S̃ pattern:
     ``"block"``, a float32 [Kbr, Br, maxblk*Bc] accumulator updated by one
     batched product per iteration; ``"edge"``, the O(nnz) per-edge vector of
     :func:`sig_sdp_mmw_torch.ops.bcsr.bcsr_edge_gram_accum`; ``"auto"``,
     block if that accumulator is at most 2 GiB.
+
+    Segmented execution: run ``num_steps`` iterations (default ``nit``)
+    from absolute index ``it_start``, starting from ``carry_in`` (a carry
+    dict returned by an earlier call; default the fresh initial carry), and
+    return that carry when ``return_carry`` (else finish with the
+    averaged-primal epilogue).  Draws, the Gram gate and the gap log use the
+    absolute index, so segments reproduce a single run exactly.  The carry
+    holds every accumulator the epilogue reads; its Gram accumulator and gap
+    log are updated in place.
     """
     Kp = ell.Kp
     K = ell.K
@@ -192,17 +211,20 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
                 return bsr_spmm_flat(bcsr.st_flat, padV(V))[:Kp]
         else:
             def s_matvec(V):
-                return bcsr_spmm(bcsr.s_blocks, padV(V))[:Kp]
+                return bcsr_spmm(bcsr.s_blocks, padV(V),
+                                 row_chunk=spmm_row_chunk)[:Kp]
 
             if bcsr.st_blocks is not None:
                 def st_matvec(V):
-                    return bcsr_spmm(bcsr.st_blocks, padV(V))[:Kp]
+                    return bcsr_spmm(bcsr.st_blocks, padV(V),
+                                     row_chunk=spmm_row_chunk)[:Kp]
             else:
                 # S̃ᵀ not stored: scatter through S̃.
                 def st_matvec(V):
                     return bcsr_spmm_transpose(bcsr.s_blocks.bcols,
                                                bcsr.s_blocks.blocks,
-                                               padV(V))[:Kp]
+                                               padV(V),
+                                               row_chunk=spmm_row_chunk)[:Kp]
     else:
         def s_matvec(V):
             return ell_spmm(ell.s_cols, ell.s_vals, V)
@@ -221,33 +243,42 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=device)
 
-    # Initial Y: uniform over the valid constraints = softmax of zeros; kept
-    # so the averaged dual matches the reference's pre-update accumulation.
-    y0D, y0F, y0H = masked_softmax(zeros(Kp), zeros(E_pad), zeros(Kp))
-    c = dict(
-        eaD=zeros(Kp), eaF=zeros(E_pad), eaH=zeros(Kp),
-        d_accu=zeros(Kp), f_accu=zeros(E_pad), hrow=zeros(Kp),
-        X_mdiag=torch.where(mask, 1.0, 0.0).to(dtype),
-        xF=zeros(E_pad), xH=zeros(Kp),
-        avg_mdiag=zeros(Kp), avg_F=zeros(E_pad), avg_H=zeros(Kp),
-        y_D=y0D, y_F=y0F, y_H=y0H,
-        ya_D=zeros(Kp), ya_F=zeros(E_pad), ya_H=zeros(Kp))
-    gap = torch.zeros((nit if log_gap else 0, 2), dtype=dtype, device=device)
-    if use_bcsr and block_gram:
-        # Averaged primal as a float32 block accumulator (flat slot axis).
-        avg_blocks = torch.zeros((Kbr, Brow, maxblk * Bcol),
-                                 dtype=torch.float32, device=device)
-    elif use_bcsr:
-        # Averaged primal on the S̃ pattern, per edge (last = padding sink).
-        avg_edge = zeros(nnz_s + 1)
+    if carry_in is not None:
+        c = carry_in
     else:
-        c["s_edge"] = torch.zeros(ell.s_cols.shape, dtype=dtype, device=device)
-        c["st_edge"] = torch.zeros(ell.st_cols.shape, dtype=dtype,
-                                   device=device)
-        c["avg_s"] = torch.zeros_like(c["s_edge"])
-        c["avg_st"] = torch.zeros_like(c["st_edge"])
+        # Initial Y: uniform over the valid constraints = softmax of zeros;
+        # kept so the averaged dual matches the reference's pre-update
+        # accumulation.
+        y0D, y0F, y0H = masked_softmax(zeros(Kp), zeros(E_pad), zeros(Kp))
+        c = dict(
+            eaD=zeros(Kp), eaF=zeros(E_pad), eaH=zeros(Kp),
+            d_accu=zeros(Kp), f_accu=zeros(E_pad), hrow=zeros(Kp),
+            X_mdiag=torch.where(mask, 1.0, 0.0).to(dtype),
+            xF=zeros(E_pad), xH=zeros(Kp),
+            avg_mdiag=zeros(Kp), avg_F=zeros(E_pad), avg_H=zeros(Kp),
+            y_D=y0D, y_F=y0F, y_H=y0H,
+            ya_D=zeros(Kp), ya_F=zeros(E_pad), ya_H=zeros(Kp),
+            gap=torch.zeros((nit if log_gap else 0, 2), dtype=dtype,
+                            device=device))
+        if use_bcsr and block_gram:
+            # Averaged primal as a float32 block accumulator (flat slot
+            # axis).
+            c["avg_blocks"] = torch.zeros((Kbr, Brow, maxblk * Bcol),
+                                          dtype=torch.float32, device=device)
+        elif use_bcsr:
+            # Averaged primal on the S̃ pattern, per edge (last = padding
+            # sink).
+            c["avg_edge"] = zeros(nnz_s + 1)
+        else:
+            c["s_edge"] = torch.zeros(ell.s_cols.shape, dtype=dtype,
+                                      device=device)
+            c["st_edge"] = torch.zeros(ell.st_cols.shape, dtype=dtype,
+                                       device=device)
+            c["avg_s"] = torch.zeros_like(c["s_edge"])
+            c["avg_st"] = torch.zeros_like(c["st_edge"])
 
-    for i in range(nit):
+    for i in range(it_start, it_start + (nit if num_steps is None
+                                         else num_steps)):
         # Averaging (pre-update).
         avg_mdiag = c["avg_mdiag"] + c["X_mdiag"]
         avg_F = c["avg_F"] + c["xF"]
@@ -275,8 +306,8 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             lam_min, _ = lanczos_extreme_eigs(
                 lambda V: L_apply(d_bar, q_matvec_bar, h_bar, V),
                 draws.gap(i, (Kp, 1), dtype), m=gap_lanczos_m)
-            gap[i, 0] = u
-            gap[i, 1] = lam_min * K
+            c["gap"][i, 0] = u
+            c["gap"][i, 1] = lam_min * K
 
         # Dual.
         eD, eF, eH = violations(c["X_mdiag"], c["xF"], c["xH"])
@@ -324,11 +355,15 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         new = dict(eaD=eaD, eaF=eaF, eaH=eaH, d_accu=d_accu, f_accu=f_accu,
                    hrow=hrow, X_mdiag=X_mdiag, xF=xF, xH=xH,
                    avg_mdiag=avg_mdiag, avg_F=avg_F, avg_H=avg_H,
-                   y_D=YD, y_F=YF, y_H=YH, ya_D=ya_D, ya_F=ya_F, ya_H=ya_H)
+                   y_D=YD, y_F=YF, y_H=YH, ya_D=ya_D, ya_F=ya_F, ya_H=ya_H,
+                   gap=c["gap"])
         # The averaged Gram takes X_0..X_{nit-2}: the average is pre-update
-        # and X_0 = I adds nothing off the diagonal, so the final X is left
-        # out (the JAX solver multiplies it by a zero gate).  Both
-        # accumulators update in place.
+        # and X_0 = I adds nothing off the diagonal, so the final X (absolute
+        # index nit-1) is left out (the JAX solver multiplies it by a zero
+        # gate).  Both accumulators update in place.
+        if use_bcsr:
+            key = "avg_blocks" if block_gram else "avg_edge"
+            new[key] = c[key]
         if use_bcsr and i < nit - 1:
             Xp = padV(X_half)
             Xr = Xp.reshape(Kbr, Brow, D_pad)
@@ -336,10 +371,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             if block_gram:
                 R = Xc[bcsr.s_blocks.bcols].reshape(Kbr, maxblk * Bcol, D_pad)
                 Gb = torch.bmm(Xr, R.transpose(1, 2)).to(torch.float32)
-                avg_blocks.addcmul_(Gb, inv_tr.to(torch.float32))
+                new["avg_blocks"].addcmul_(Gb, inv_tr.to(torch.float32))
             else:
                 bcsr_edge_gram_accum(bcsr.s_blocks.bcols, Xr, Xc, bcsr.g_src,
-                                     bcsr.g_dst, avg_edge, inv_tr)
+                                     bcsr.g_dst, new["avg_edge"], inv_tr)
         elif not use_bcsr:
             new["s_edge"] = torch.where(
                 ell.s_vals != 0, _edge_dots(ell, ell.s_cols, X_half, inv_tr),
@@ -350,18 +385,18 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             new["avg_s"] = c["avg_s"] + c["s_edge"]
             new["avg_st"] = c["avg_st"] + c["st_edge"]
         c = new
+    if return_carry:
+        return c
 
     # ---- final UB + operator-based factorization ---------------------------
     avg_mdiag = c["avg_mdiag"] / nit
     avg_F = c["avg_F"] / nit
-    avg_H = c["avg_H"] / nit
-    eD, eF, eH = violations(avg_mdiag, avg_F, avg_H)
-    ub_final = _masked_max((eD, mask), (eF, a_mask), (eH, mask))
+    ub_final = mmw_ell_ub_from_carry(ell, Z, c, nit)
 
     if not factorize:
         return MMWEllOutput(
             X_half=torch.zeros((Kp, rank_pad), dtype=dtype, device=device),
-            ub_final=ub_final, gap_log=gap)
+            ub_final=ub_final, gap_log=c["gap"])
 
     if use_bcsr:
         nslots = Kbr * maxblk * Brow * Bcol
@@ -370,10 +405,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             # pattern) both symmetrizes and drops non-pattern positions.
             wflat = torch.zeros(nslots, dtype=torch.float32, device=device)
             wflat[bcsr.s_pos] = bcsr.w_edge.to(torch.float32)
-            wavg = (avg_blocks.reshape(Kbr, Brow, maxblk, Bcol) / nit
+            wavg = (c["avg_blocks"].reshape(Kbr, Brow, maxblk, Bcol) / nit
                     * wflat.reshape(Kbr, Brow, maxblk, Bcol)).to(q_dtype)
         else:
-            avg_vals = (avg_edge[:nnz_s] / nit) * bcsr.w_edge.to(dtype)
+            avg_vals = (c["avg_edge"][:nnz_s] / nit) * bcsr.w_edge.to(dtype)
             flat = torch.zeros(nslots, dtype=q_dtype, device=device)
             flat[bcsr.s_pos] = avg_vals.to(q_dtype)
             wavg = flat.reshape(Kbr, Brow, maxblk, Bcol)
@@ -385,8 +420,9 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             Vp = padV(V)
             t = avg_mdiag[:, None] * V
             t = t + q_spmm(q_avg, V)
-            t = t + bcsr_spmm(avg_bell, Vp)[:Kp]
-            t = t + bcsr_spmm_transpose(bcsr.s_blocks.bcols, wavg, Vp)[:Kp]
+            t = t + bcsr_spmm(avg_bell, Vp, row_chunk=spmm_row_chunk)[:Kp]
+            t = t + bcsr_spmm_transpose(bcsr.s_blocks.bcols, wavg, Vp,
+                                        row_chunk=spmm_row_chunk)[:Kp]
             return t
     else:
         avg_s = c["avg_s"] / nit * ell.s_xw
@@ -415,7 +451,34 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     X_half = torch.where(keep, (Qb @ Vb[:, order]) * torch.sqrt(w_sel)[None, :],
                          0.0)
     X_half = torch.where(mask[:, None], X_half, 0.0)
-    return MMWEllOutput(X_half=X_half, ub_final=ub_final, gap_log=gap)
+    return MMWEllOutput(X_half=X_half, ub_final=ub_final, gap_log=c["gap"])
+
+
+def mmw_ell_ub_from_carry(ell, Z, carry, n) -> torch.Tensor:
+    """Max constraint violation of the n-iteration averaged primal, read
+    from a segmented run's carry (the reference's LOG_GAP UB): the
+    convergence curve at segment boundaries for O(Kp + E) vector math, and
+    the solver's own ``ub_final`` at n = nit.  ``ell``: EllState or
+    EllSlim."""
+    avg_mdiag = carry["avg_mdiag"]
+    dtype = avg_mdiag.dtype
+    Zf = torch.tensor(float(Z), dtype=dtype, device=avg_mdiag.device)
+    K = ell.K
+    if hasattr(ell, "s_vals"):
+        S_sum = torch.sum(ell.s_vals, dim=1)
+        row2 = torch.sum(ell.s_vals * ell.s_vals, dim=1)
+    else:
+        S_sum, row2 = ell.S_sum, ell.row2
+    norm_H = (torch.sqrt(row2) * (Zf - 1.0) / (2.0 * Zf)
+              + torch.abs(ell.h_max / K - S_sum / (K * Zf)))
+    norm_H = torch.where(ell.mask & (norm_H > 0), norm_H, 1.0)
+    nf = float(n)
+    eD = (avg_mdiag / nf - 1.0) / (1.0 - 1.0 / K)
+    eF = ((carry["avg_F"] / nf + 1.0 / (Zf - 1.0))
+          / (1.0 / (K * (Zf - 1.0)) + 0.5))
+    eH = ((carry["avg_H"] / nf * (Zf - 1.0) / Zf - (ell.h_max - S_sum / Zf))
+          / norm_H)
+    return _masked_max((eD, ell.mask), (eF, ell.a_mask), (eH, ell.mask))
 
 
 class MMWEll(StatsObject):

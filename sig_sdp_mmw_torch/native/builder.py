@@ -2,10 +2,11 @@
 
 The library is compiled from that one source, with the flags of
 ``csrc/Makefile``, into ``build/native`` at first use (never into
-``csrc/``).  The port binds what its slice uses: the sparse state builder
-and the greedy rounding scan.  ``native_available()`` returns False when no
-C++ toolchain can build it; the state builder then falls back to the scipy
-path, and the rounding raises.
+``csrc/``).  The port binds what its slices use: the sparse state builder,
+the greedy rounding scan and the block-ELL operand packers.
+``native_available()`` returns False when no C++ toolchain can build it;
+the state builder then falls back to the scipy path, and the rounding and
+the packers raise.
 """
 
 from __future__ import annotations
@@ -80,6 +81,18 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.sig_greedy_round.restype = i64
         lib.sig_greedy_round.argtypes = [i64, i64, pi64, pi64, pf64, pi64,
                                          pi64, pf64, pi64, pi32, pi32]
+        lib.sig_bcsr_maxblk.restype = i64
+        lib.sig_bcsr_maxblk.argtypes = [i64, i64, i64, i64, pi64, pi64]
+        lib.sig_bcsr_pack.restype = ctypes.c_int
+        lib.sig_bcsr_pack.argtypes = [i64, i64, i64, i64, i64, pi64, pi64,
+                                      pf64, pi32, vp, ctypes.c_int, vp, vp,
+                                      vp, vp, vp]
+        lib.sig_bcsr_gram_maps.restype = i64
+        lib.sig_bcsr_gram_maps.argtypes = [i64, i64, i64, i64, pi32, pi32,
+                                           pi32, pi32, i64, pi32, pi32]
+        pf32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.sig_bcsr_sym_weights.restype = None
+        lib.sig_bcsr_sym_weights.argtypes = [i64, pi64, pi64, pf32]
         _lib = lib
         return _lib
 
@@ -171,3 +184,119 @@ def greedy_round_native(StT_csr, Q_csr, h_max: np.ndarray,
     if rem < 0:
         raise RuntimeError("sig_greedy_round: invalid arguments")
     return slot_of, int(rem)
+
+
+def _sorted_csr(M_csr):
+    """``M_csr`` as CSR with sorted column indices, never sorting the
+    caller's matrix in place (a copy is sorted when needed)."""
+    M = M_csr.tocsr()
+    return M if M.has_sorted_indices else M.sorted_indices()
+
+
+def bcsr_pack_native(M_csr, block, pad_rows_to: Optional[int] = None,
+                     dtype=None, return_entry_maps: bool = False):
+    """Block-ELL arrays of a scipy CSR matrix from the C++ packer
+    (``sig_bcsr_pack``), the twin of ``ops.bcsr._bcsr_arrays_np`` with the
+    value cast fused into the scatter: a bfloat16 operand never exists as a
+    float32 block array.
+
+    ``dtype``: ``torch.float32`` (default) or ``torch.bfloat16``.  Returns
+    ``(bcols, blocks, Kp)`` — int32 numpy [Kbr, maxblk] and a CPU tensor
+    [Kbr, Br, maxblk, Bc] — or, with ``return_entry_maps``, also the int32
+    numpy entry maps ``(ebr, eslot, erloc, ecloc, epos)`` in CSR entry order
+    (epos is the ``s_pos`` flat position).  The slot width ``maxblk`` is
+    computed here from the matrix itself, so the packer never sees a stale
+    one; the maps are checked to cover every entry.  Raises RuntimeError
+    when the native library is unavailable.
+    """
+    import math
+
+    import torch
+
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native BCSR packer unavailable: {build_error}")
+    dtype = torch.float32 if dtype is None else dtype
+    codes = {torch.float32: (0, np.float32), torch.bfloat16: (1, np.int16)}
+    if dtype not in codes:
+        raise ValueError(f"native packer stores float32 or bfloat16, "
+                         f"got {dtype}")
+    code, store = codes[dtype]
+    Br, Bc = (block, block) if isinstance(block, int) else map(int, block)
+    M = _sorted_csr(M_csr)
+    K = M.shape[0]
+    lcm = Br * Bc // math.gcd(Br, Bc)
+    Kp = pad_rows_to or ((K + lcm - 1) // lcm) * lcm
+    Kbr = Kp // Br
+    indptr = np.ascontiguousarray(M.indptr, np.int64)
+    indices = np.ascontiguousarray(M.indices, np.int64)
+    data = np.ascontiguousarray(M.data, np.float64)
+    maxblk = int(lib.sig_bcsr_maxblk(K, Kp, Br, Bc, indptr, indices))
+    if maxblk < 0:
+        raise RuntimeError("sig_bcsr_maxblk: invalid arguments")
+    if return_entry_maps and Kbr * Br * maxblk * Bc >= 2**31:
+        raise ValueError("entry positions exceed int32: "
+                         f"{Kbr}x{Br}x{maxblk}x{Bc} block elements")
+    bcols = np.zeros((Kbr, maxblk), np.int32)
+    blocks = np.zeros(Kbr * Br * maxblk * Bc, store)
+    maps = [np.full(M.nnz, -1, np.int32) for _ in range(5)] \
+        if return_entry_maps else []
+    ptrs = [m.ctypes.data_as(ctypes.c_void_p) for m in maps] or [None] * 5
+    rc = lib.sig_bcsr_pack(K, Kp, Br, Bc, maxblk, indptr, indices, data,
+                           bcols, blocks.ctypes.data_as(ctypes.c_void_p),
+                           code, *ptrs)
+    if rc != 0:
+        raise RuntimeError("sig_bcsr_pack failed")
+    if maps and M.nnz and int(maps[1].min()) < 0:
+        raise RuntimeError("sig_bcsr_pack left entries unplaced")
+    t = torch.from_numpy(blocks.reshape(Kbr, Br, maxblk, Bc))
+    if code == 1:
+        t = t.view(torch.bfloat16)
+    if return_entry_maps:
+        return bcols, t, Kp, tuple(maps)
+    return bcols, t, Kp
+
+
+def bcsr_gram_maps_native(ebr: np.ndarray, eslot: np.ndarray,
+                          erloc: np.ndarray, ecloc: np.ndarray,
+                          maxblk: int, Br: int, Bc: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """(g_src, g_dst) [maxblk, max_e] int32 from the packer's entry maps:
+    the counting-sort twin of the numpy stable-argsort grouping in
+    ``ops.bcsr.bcsr_operands_from_state`` (entry order kept within each
+    slot; unfilled g_dst slots hold nnz, the sink)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native gram maps unavailable: {build_error}")
+    nnz = int(eslot.shape[0])
+    counts = np.bincount(eslot, minlength=maxblk)
+    max_e = max(int(counts.max(initial=0)), 1)
+    g_src = np.zeros((maxblk, max_e), np.int32)
+    g_dst = np.full((maxblk, max_e), nnz, np.int32)
+    rc = lib.sig_bcsr_gram_maps(
+        nnz, int(maxblk), int(Br), int(Bc),
+        np.ascontiguousarray(ebr, np.int32),
+        np.ascontiguousarray(eslot, np.int32),
+        np.ascontiguousarray(erloc, np.int32),
+        np.ascontiguousarray(ecloc, np.int32), max_e, g_src, g_dst)
+    if rc < 0:
+        raise RuntimeError("sig_bcsr_gram_maps failed")
+    return g_src, g_dst
+
+
+def bcsr_sym_weights_native(M_csr) -> np.ndarray:
+    """[nnz] float32 symmetrization weights in CSR entry order: 0.5 where
+    the transpose entry exists, else 1.0.  The C++ loop binary-searches each
+    row's columns, so the indices must be sorted: raises ValueError on an
+    unsorted matrix."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native weights unavailable: {build_error}")
+    M = M_csr.tocsr()
+    if not M.has_sorted_indices:
+        raise ValueError("symmetrization weights need sorted CSR indices")
+    w = np.empty(M.nnz, np.float32)
+    lib.sig_bcsr_sym_weights(M.shape[0],
+                             np.ascontiguousarray(M.indptr, np.int64),
+                             np.ascontiguousarray(M.indices, np.int64), w)
+    return w

@@ -5,15 +5,22 @@ in Hilbert-curve order (:func:`hilbert_order`), is banded, so it is stored as
 dense 128x128 blocks of which only a few percent of entries are nonzero:
 
 * :class:`BlockEll` — block-ELL, every block-row padded to the same slot
-  count; its products are plain batched matmuls (:func:`bcsr_spmm`,
-  :func:`bcsr_spmm_transpose`, :func:`bcsr_edge_gram_accum`);
+  count; its product is the hand-written CUDA kernel
+  ``ops/kernels/csrc/bcsr_spmm_ell.cu`` behind :func:`bcsr_spmm`, with
+  :func:`bcsr_spmm_reference` as its plain version; the transpose product
+  and the pattern Gram are plain torch (:func:`bcsr_spmm_transpose`,
+  :func:`bcsr_edge_gram_accum`);
 * :class:`FlatBsr` — flat block-CSR, only real blocks, grouped ``G`` per
-  step; its product is the hand-written CUDA kernel
-  ``ops/kernels/csrc/bsr_spmm_flat.cu`` behind :func:`bsr_spmm_flat`, with
-  :func:`bsr_spmm_flat_reference` as its plain version.
+  step; its products are the CUDA kernels ``bsr_spmm_flat.cu`` behind
+  :func:`bsr_spmm_flat` and ``bsr_spmm_vres.cu`` (V resident in L2) behind
+  :func:`bsr_spmm_vres`, both with :func:`bsr_spmm_flat_reference` as their
+  plain version.
 
-The host packers are numpy and give the JAX package's arrays exactly; the
-containers hold tensors and move with ``.to(device)``.
+Each kernel wrapper takes the plain version for a CPU tensor and, for a CUDA
+tensor, launches its kernel or raises; ``<wrapper>.launches`` counts its
+launches.  The host packers are numpy (above ``_NATIVE_PACK_MIN_NNZ``
+nonzeros, the shared C++ packer) and give the JAX package's arrays exactly;
+the containers hold tensors and move with ``.to(device)``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sig_sdp_mmw_torch.utils.tensors import TensorFields, as_tensor
 
@@ -110,18 +118,44 @@ def _cast_f32(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
                             ).to(device=device, dtype=dtype)
 
 
+# Above this nnz the block-ELL packing goes through the shared C++ packer
+# (bit-identical to the numpy path; tests/test_torch_native.py holds them
+# equal with the threshold lowered).  At a million links the numpy path
+# would build two 6.2 GB float32 block arrays on the host.
+_NATIVE_PACK_MIN_NNZ = 1 << 20
+
+
 def bcsr_from_csr(M, block: int = 128, pad_rows_to: int = None,
                   dtype=torch.float32, device="cpu") -> BlockEll:
-    """Convert a scipy CSR matrix to BlockEll."""
+    """Convert a scipy CSR matrix to BlockEll (through the native packer
+    above ``_NATIVE_PACK_MIN_NNZ`` nonzeros, for float32 and bfloat16
+    blocks: the same arrays, without a float32 copy of a bfloat16
+    operand)."""
+    if M.nnz > _NATIVE_PACK_MIN_NNZ and dtype in _KERNEL_BLOCK_DTYPES:
+        from sig_sdp_mmw_torch.native.builder import bcsr_pack_native
+
+        bcols, blocks, Kp = bcsr_pack_native(M, block, pad_rows_to, dtype)
+        return BlockEll(bcols=torch.from_numpy(bcols).to(device),
+                        blocks=blocks.to(device), nrows=Kp)
     bcols, blocks, Kp = _bcsr_arrays_np(M, block, pad_rows_to, np.float32)
     return BlockEll(bcols=torch.from_numpy(bcols).to(device),
                     blocks=_cast_f32(blocks, dtype, device), nrows=Kp)
 
 
-def bcsr_spmm(mat: BlockEll, V: torch.Tensor) -> torch.Tensor:
-    """BlockEll [Kp, Kp] x [Kp, D] -> [Kp, D]: a gather of V column-blocks
-    and one batched matmul.  V is cast to the block dtype first and the
-    product accumulates in V's dtype."""
+def _row_chunks(Kbr: int, row_chunk: Optional[int]):
+    """[start, stop) ranges of block-rows, ``row_chunk`` at a time (one
+    range when None)."""
+    step = Kbr if row_chunk is None else max(int(row_chunk), 1)
+    return [(i, min(i + step, Kbr)) for i in range(0, Kbr, step)]
+
+
+def bcsr_spmm_reference(mat: BlockEll, V: torch.Tensor,
+                        row_chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch ``A @ V`` on block-ELL: a gather of V column-blocks and
+    one batched matmul per chunk of ``row_chunk`` block-rows (None: one
+    chunk), so the float copy of the blocks and the gathered V stack stay
+    [row_chunk, ...] at large K.  V is cast to the block dtype first and the
+    product accumulates in V's dtype, as the TPU kernel does."""
     Br, Bc = mat.Brow, mat.B
     Kbr = mat.Kb
     Kbc = mat.nrows // Bc
@@ -129,18 +163,91 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor) -> torch.Tensor:
     acc = V.dtype
     maxblk = mat.bcols.shape[1]
     Vb = V.to(mat.blocks.dtype).to(acc).reshape(Kbc, Bc, D)
-    R = Vb[mat.bcols].reshape(Kbr, maxblk * Bc, D)
-    A = mat.blocks.to(acc).reshape(Kbr, Br, maxblk * Bc)
-    return torch.bmm(A, R).reshape(Kbr * Br, D)
+    out = torch.empty((Kbr, Br, D), dtype=acc, device=V.device)
+    for i, j in _row_chunks(Kbr, row_chunk):
+        R = Vb[mat.bcols[i:j]].reshape(j - i, maxblk * Bc, D)
+        A = mat.blocks[i:j].to(acc).reshape(j - i, Br, maxblk * Bc)
+        torch.bmm(A, R, out=out[i:j])
+    return out.reshape(Kbr * Br, D)
+
+
+def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
+    """Why the block-ELL CUDA kernel cannot take these operands (None if it
+    can).  :func:`bcsr_spmm` pads V's columns to a multiple of 8 first."""
+    if mat.Brow not in (8, 128) or mat.B != 128:
+        return f"blocks must be 128x128 or 8x128, got {mat.Brow}x{mat.B}"
+    if mat.blocks.dtype not in _KERNEL_BLOCK_DTYPES:
+        return f"blocks must be float32 or bfloat16, got {mat.blocks.dtype}"
+    if (mat.blocks.dim() != 4 or mat.blocks.shape[0] != mat.Kb
+            or mat.blocks.shape[2] != mat.bcols.shape[1]
+            or mat.nrows != mat.Kb * mat.Brow):
+        return (f"blocks {list(mat.blocks.shape)} do not match bcols "
+                f"{list(mat.bcols.shape)} and nrows {mat.nrows}")
+    if V.dtype != torch.float32:
+        return f"V must be float32, got {V.dtype}"
+    if V.dim() != 2 or V.shape[0] != mat.nrows:
+        return f"V must be [{mat.nrows}, D], got {list(V.shape)}"
+    if V.shape[1] == 0 or V.shape[1] % 8:
+        return f"D must be a positive multiple of 8, got {V.shape[1]}"
+    if mat.bcols.dtype != torch.int32:
+        return f"bcols must be torch.int32, got {mat.bcols.dtype}"
+    for name, t in (("blocks", mat.blocks), ("bcols", mat.bcols), ("V", V)):
+        if not t.is_contiguous():
+            return f"{name} must be contiguous"
+        if t.device != V.device:
+            return f"{name} is on {t.device}, V on {V.device}"
+        if t.data_ptr() % 16:
+            return f"{name} must be 16-byte aligned"
+    return None
+
+
+def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
+              row_chunk: Optional[int] = None) -> torch.Tensor:
+    """BlockEll [Kp, Kp] x [Kp, D] -> [Kp, D].  A CPU tensor goes to the
+    plain version (``row_chunk`` bounds its transients); a CUDA tensor
+    launches the block-ELL kernel on the current stream, which needs no
+    chunking, or raises.  V's columns are padded with zeros to a multiple of
+    8 for the kernel (the gap Lanczos sends D=1) and the result is sliced
+    back.  ``bcsr_spmm.launches`` counts kernel launches."""
+    if V.device.type == "cpu":
+        return bcsr_spmm_reference(mat, V, row_chunk)
+    if V.device.type != "cuda":
+        raise ValueError(f"bcsr_spmm: no kernel for device {V.device}")
+    D = V.shape[1] if V.dim() == 2 else 0
+    Vk = F.pad(V, (0, -D % 8)) if D % 8 else V.contiguous()
+    why = ell_kernel_unsupported(mat, Vk)
+    if why is not None:
+        raise ValueError(f"bcsr_spmm: {why}")
+    from sig_sdp_mmw_torch.ops.kernels import bcsr_spmm_ell_library
+
+    lib = bcsr_spmm_ell_library()
+    out = torch.empty((mat.nrows, Vk.shape[1]), dtype=torch.float32,
+                      device=V.device)
+    with torch.cuda.device(V.device):
+        rc = lib.bcsr_spmm_ell_launch(
+            mat.bcols.data_ptr(), mat.blocks.data_ptr(),
+            _KERNEL_BLOCK_DTYPES[mat.blocks.dtype], mat.Brow, Vk.data_ptr(),
+            out.data_ptr(), mat.Kb, mat.bcols.shape[1], Vk.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bcsr_spmm: launch failed with cudaError {rc}")
+    bcsr_spmm.launches += 1
+    return out if Vk.shape[1] == D else out[:, :D]
+
+
+bcsr_spmm.launches = 0
 
 
 def bcsr_spmm_transpose(mat_bcols: torch.Tensor, blocks: torch.Tensor,
-                        V: torch.Tensor) -> torch.Tensor:
+                        V: torch.Tensor,
+                        row_chunk: Optional[int] = None) -> torch.Tensor:
     """``A^T @ V`` with A in BlockEll form (bcols, blocks): every
     per-(row, slot) contribution ``blocks[k, :, s, :]^T @ Vr[k]`` from one
-    batched product, scatter-added into the output column blocks.  On CUDA
-    the scatter-add order varies from run to run (float sums differ in the
-    last bits)."""
+    batched product per chunk of ``row_chunk`` block-rows (None: one chunk),
+    scatter-added into the output column blocks.  Plain torch on every
+    device (the JAX package's is an XLA scatter-add, not a Pallas kernel).
+    On CUDA the scatter-add order varies from run to run (float sums differ
+    in the last bits)."""
     Kbr, maxblk = mat_bcols.shape
     Br, Bc = blocks.shape[1], blocks.shape[-1]
     nrows = Kbr * Br
@@ -148,9 +255,11 @@ def bcsr_spmm_transpose(mat_bcols: torch.Tensor, blocks: torch.Tensor,
     D = V.shape[1]
     acc = V.dtype
     Vr = V.to(blocks.dtype).to(acc).reshape(Kbr, Br, D)
-    c = torch.einsum("krsc,krd->kscd", blocks.to(acc), Vr)
     seg = torch.zeros((Kbc, Bc, D), dtype=acc, device=V.device)
-    seg.index_add_(0, mat_bcols.reshape(-1), c.reshape(Kbr * maxblk, Bc, D))
+    for i, j in _row_chunks(Kbr, row_chunk):
+        c = torch.einsum("krsc,krd->kscd", blocks[i:j].to(acc), Vr[i:j])
+        seg.index_add_(0, mat_bcols[i:j].reshape(-1),
+                       c.reshape((j - i) * maxblk, Bc, D))
     return seg.reshape(nrows, D)
 
 
@@ -373,6 +482,43 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
 bsr_spmm_flat.launches = 0
 
 
+def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
+    """``A @ V`` on flat block-CSR with V resident in L2 (the Hopper form of
+    the TPU kernel's VMEM-resident V, see ``bsr_spmm_vres.cu``).  Same
+    contract and plain version as :func:`bsr_spmm_flat`.  On CUDA, V is
+    cast to the block dtype once here, and that copy is what the kernel
+    keeps in L2; ``bsr_spmm_vres.launches`` counts kernel launches."""
+    if V.device.type == "cpu":
+        return bsr_spmm_flat_reference(mat, V)
+    if V.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_vres: no kernel for device {V.device}")
+    why = flat_kernel_unsupported(mat, V)
+    if why is None and mat.blocks.data_ptr() % 32:
+        why = "blocks must be 32-byte aligned"   # tensor-core loads from HBM
+    if why is not None:
+        raise ValueError(f"bsr_spmm_vres: {why}")
+    from sig_sdp_mmw_torch.ops.kernels import bsr_spmm_vres_library
+
+    lib = bsr_spmm_vres_library()
+    Vc = V.to(mat.blocks.dtype)
+    out = torch.empty((mat.nrows, V.shape[1]), dtype=torch.float32,
+                      device=V.device)
+    with torch.cuda.device(V.device):
+        rc = lib.bsr_spmm_vres_launch(
+            mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+            mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
+            Vc.data_ptr(), Vc.numel() * Vc.element_size(), out.data_ptr(),
+            mat.Kbr, mat.G, V.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bsr_spmm_vres: launch failed with cudaError {rc}")
+    bsr_spmm_vres.launches += 1
+    return out
+
+
+bsr_spmm_vres.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Operands of the block-native MMW
 # ---------------------------------------------------------------------------
@@ -425,7 +571,10 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
     blocks (bfloat16 halves the bytes; products still accumulate in
     float32).  ``store_transpose=False`` runs S̃ᵀ matvecs as scatter-adds
     through ``s_blocks``.  ``flat_group`` also builds the flat block-CSR
-    twins that route S̃ and S̃ᵀ matvecs through the CUDA kernel.
+    twins that route S̃ and S̃ᵀ matvecs through the flat CUDA kernel.
+    Above ``_NATIVE_PACK_MIN_NNZ`` nonzeros (float32 and bfloat16 blocks)
+    the block arrays, Gram maps and symmetrization weights come from the
+    native packer, which must build: it raises otherwise.
     """
     import scipy.sparse
 
@@ -444,50 +593,69 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
         nr = pad_rows_to
     Kbr = nr // Br
     Kbc = nr // Bc
-    s_bcols, s_vals_np, _, (ebr, eslot, erloc, ecloc) = _bcsr_arrays_np(
-        St, (Br, Bc), pad_rows_to=nr, dtype=np.float32,
-        return_entry_maps=True)
-    maxblk = s_bcols.shape[1]
     nnz = St.nnz
-
-    # Edge-level Gram maps (entry order = St COO order = CSR sorted).
-    src_pos = ((ebr * Br + erloc) * Bc + ecloc).astype(np.int64)
-    counts_s = np.bincount(eslot, minlength=maxblk)
-    max_e = max(int(counts_s.max(initial=0)), 1)
-    g_src = np.zeros((maxblk, max_e), np.int32)
-    g_dst = np.full((maxblk, max_e), nnz, np.int32)  # sink by default
-    order = np.argsort(eslot, kind="stable")
-    within = np.arange(nnz) - np.concatenate(
-        ([0], np.cumsum(counts_s)))[eslot[order]]
-    g_src[eslot[order], within] = src_pos[order]
-    g_dst[eslot[order], within] = np.arange(nnz)[order]
-    s_pos = (((ebr * Br + erloc) * maxblk + eslot) * Bc
-             + ecloc).astype(np.int32)
-
-    # Symmetrization weights, aligned with St's CSR entry order.
-    P = St.copy()
-    P.data = np.ones_like(P.data)
-    B2 = P.multiply(P.transpose()).tocsr()
-    Wm = (P - 0.5 * B2).tocsr()
-    Wm.sort_indices()
-    if not (np.array_equal(Wm.indices, St.indices)
-            and np.array_equal(Wm.indptr, St.indptr)):
-        raise AssertionError("weight/value edge orders diverged")
-    w_edge = Wm.data.astype(np.float32)
-
-    s_blocks = BlockEll(bcols=torch.from_numpy(s_bcols),
-                        blocks=_cast_f32(s_vals_np, dtype, "cpu"), nrows=nr)
-    del s_vals_np
-    st_blocks = None
     StT = St.transpose().tocsr()
-    if store_transpose:
-        st_bcols, st_vals_np, _ = _bcsr_arrays_np(StT, (Br, Bc),
-                                                  pad_rows_to=nr,
-                                                  dtype=np.float32)
-        st_blocks = BlockEll(bcols=torch.from_numpy(st_bcols),
-                             blocks=_cast_f32(st_vals_np, dtype, "cpu"),
-                             nrows=nr)
-        del st_vals_np
+    if nnz > _NATIVE_PACK_MIN_NNZ and dtype in _KERNEL_BLOCK_DTYPES:
+        from sig_sdp_mmw_torch.native.builder import (bcsr_gram_maps_native,
+                                                      bcsr_pack_native,
+                                                      bcsr_sym_weights_native)
+
+        s_bcols, s_vals, _, (ebr, eslot, erloc, ecloc, s_pos) = \
+            bcsr_pack_native(St, (Br, Bc), nr, dtype, return_entry_maps=True)
+        s_blocks = BlockEll(bcols=torch.from_numpy(s_bcols), blocks=s_vals,
+                            nrows=nr)
+        maxblk = s_bcols.shape[1]
+        # Counting-sort grouping and entrywise transpose lookup in C++.
+        g_src, g_dst = bcsr_gram_maps_native(ebr, eslot, erloc, ecloc,
+                                             maxblk, Br, Bc)
+        del ebr, eslot, erloc, ecloc
+        w_edge = bcsr_sym_weights_native(St)
+        st_blocks = (bcsr_from_csr(StT, (Br, Bc), nr, dtype)
+                     if store_transpose else None)
+    else:
+        s_bcols, s_vals_np, _, (ebr, eslot, erloc, ecloc) = _bcsr_arrays_np(
+            St, (Br, Bc), pad_rows_to=nr, dtype=np.float32,
+            return_entry_maps=True)
+        maxblk = s_bcols.shape[1]
+
+        # Edge-level Gram maps (entry order = St COO order = CSR sorted).
+        src_pos = ((ebr * Br + erloc) * Bc + ecloc).astype(np.int64)
+        counts_s = np.bincount(eslot, minlength=maxblk)
+        max_e = max(int(counts_s.max(initial=0)), 1)
+        g_src = np.zeros((maxblk, max_e), np.int32)
+        g_dst = np.full((maxblk, max_e), nnz, np.int32)  # sink by default
+        order = np.argsort(eslot, kind="stable")
+        within = np.arange(nnz) - np.concatenate(
+            ([0], np.cumsum(counts_s)))[eslot[order]]
+        g_src[eslot[order], within] = src_pos[order]
+        g_dst[eslot[order], within] = np.arange(nnz)[order]
+        s_pos = (((ebr * Br + erloc) * maxblk + eslot) * Bc
+                 + ecloc).astype(np.int32)
+
+        # Symmetrization weights, aligned with St's CSR entry order.
+        P = St.copy()
+        P.data = np.ones_like(P.data)
+        B2 = P.multiply(P.transpose()).tocsr()
+        Wm = (P - 0.5 * B2).tocsr()
+        Wm.sort_indices()
+        if not (np.array_equal(Wm.indices, St.indices)
+                and np.array_equal(Wm.indptr, St.indptr)):
+            raise AssertionError("weight/value edge orders diverged")
+        w_edge = Wm.data.astype(np.float32)
+
+        s_blocks = BlockEll(bcols=torch.from_numpy(s_bcols),
+                            blocks=_cast_f32(s_vals_np, dtype, "cpu"),
+                            nrows=nr)
+        del s_vals_np
+        st_blocks = None
+        if store_transpose:
+            st_bcols, st_vals_np, _ = _bcsr_arrays_np(StT, (Br, Bc),
+                                                      pad_rows_to=nr,
+                                                      dtype=np.float32)
+            st_blocks = BlockEll(bcols=torch.from_numpy(st_bcols),
+                                 blocks=_cast_f32(st_vals_np, dtype, "cpu"),
+                                 nrows=nr)
+            del st_vals_np
 
     # Association edges -> block scatter layout.
     Qu = scipy.sparse.triu(Q_csr.tocsr(), k=1).tocoo()

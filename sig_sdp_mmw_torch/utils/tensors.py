@@ -45,6 +45,20 @@ def as_tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point was asked to run on, with TF32 off (the
+    reference multiplies in full float32).  A CUDA device that is not there
+    raises: an entry point never moves to the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device "
+                           "is available (pass device='cpu' to run on the "
+                           "CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def cuda_sync(x=None) -> None:
     """Wait for queued device work when ``x`` is (or holds) a CUDA tensor,
     so a host timer around it measures the work and not its enqueue."""

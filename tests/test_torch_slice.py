@@ -89,7 +89,10 @@ def test_slice_z_matches_jax_search(port_run):
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has jax loaded by conftest)."""
     code = ("import sys, sig_sdp_mmw_torch, sig_sdp_mmw_torch.models.mmw_ell,"
-            " sig_sdp_mmw_torch.experiments.e2e_large; "
+            " sig_sdp_mmw_torch.experiments.e2e_large,"
+            " sig_sdp_mmw_torch.experiments.million_link_e2e,"
+            " sig_sdp_mmw_torch.experiments.bench_flat_spmm,"
+            " sig_sdp_mmw_torch.ops.kernels; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
