@@ -9,17 +9,25 @@
    all four compilers started together, and prints the card's name and
    power limit.
 2. Kernels vs plain, each on the card against its plain PyTorch version on
-   the same inputs, to 1e-5 of max|out|, timed with CUDA events:
+   the same inputs, to 1e-5 of max|out|, two launches of each case bitwise
+   equal, timed with CUDA events, with the case's bound (bytes of the real
+   blocks, V and out over 3.35 TB/s, or its operations over the peak rate,
+   whichever is larger; bench_flat_spmm.bound) and the share of it reached:
    * flat block-CSR (bsr_spmm_flat) on the K=100,467 S̃ operand of the
-     100k path (128x128 blocks, 8 per step): bf16 and float32 blocks at
-     D=32 and D=128, and S̃ᵀ (bf16, D=128);
+     100k path (128x128 blocks, 8 per step): bf16 blocks at D=32, 48, 64
+     and 128 (and D=128 split over two 64-column CTAs), float32 blocks at
+     D=32 and 128, and S̃ᵀ (bf16, D=128);
    * block-ELL (bcsr_spmm) on the same S̃: bf16 at D=48 and D=128, float32
      at D=48; on the 100k association operator Q (bf16, D=128); and on the
-     K=1,009,200 S̃ of the million-link path (bf16, D=48) against the plain
-     version at row_chunk=2048;
+     K=1,009,200 S̃ and Q of the million-link path (bf16, D=48) against the
+     plain version at row_chunk=2048;
    * V-resident flat (bsr_spmm_vres) through the SpMM bench entry point
      (sig_sdp_mmw_torch/experiments/bench_flat_spmm.py) at G=8 and G=32,
-     which also runs the ELL and flat kernels on that operand.
+     which also runs the ELL and flat kernels on that operand;
+   * the yardstick PyTorch call for the kernels' main-path products
+     (bench_flat_spmm.library_spmm: a BSR tensor of the real blocks @ V,
+     bf16 where PyTorch runs it, else float32), with the device kernels
+     the profiler saw it run.  The port never calls it.
 3. The 100k path: the block-sparse pipeline of
    sig_sdp_mmw_torch/experiments/e2e_large.py on cell 183 (K=100,467; bf16
    blocks, stored transpose, flat_group=8, nit=150, eta=0.05, 10 rounding
@@ -74,16 +82,36 @@ def reset_launches(tb) -> None:
     tb.bsr_spmm_vres.launches = 0
 
 
-def compare(name, kernel, plain, iters=20):
-    """Kernel vs plain on the same inputs: max |diff| within REL_TOL of
-    max|plain| (bench_flat_spmm.check raises otherwise), and both timed."""
-    from sig_sdp_mmw_torch.experiments.bench_flat_spmm import check, time_ms
+def compare(name, mat, V, kernel, plain, iters=20, library=False):
+    """Kernel vs plain on the same inputs: two kernel launches bitwise
+    equal, max |diff| within REL_TOL of max|plain| (bench_flat_spmm.check
+    raises otherwise), both timed, the bound of ``mat @ V`` and, with
+    ``library``, the yardstick PyTorch call's time."""
+    import torch
 
-    res = check(name, kernel(), plain())
+    from sig_sdp_mmw_torch.experiments.bench_flat_spmm import (bound, check,
+                                                               library_spmm,
+                                                               time_ms)
+
+    out = kernel()
+    if not torch.equal(out, kernel()):
+        raise AssertionError(f"{name}: two launches differ")
+    res = check(name, out, plain())
+    del out
     ms, plain_ms = time_ms(kernel, iters), time_ms(plain, iters)
+    rec = dict(max_abs_err=res["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               **bound(mat, V.shape[1]))
     log(f"[2 kernel] {name}: max_abs_err={res['max_abs_err']:.3e} "
-        f"(tol {res['tol']:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=res["max_abs_err"], ms=ms, plain_ms=plain_ms)
+        f"(tol {res['tol']:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms; needs {rec['bytes_needed'] / 1e9:.4f} GB, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+        f"{rec['bound_ms'] / ms:.3f}")
+    if library:
+        rec.update(library_spmm(mat, V, iters))
+        log(f"[2 library] {name}: {rec['library_ms']} ms in "
+            f"{rec['library_dtype']}, kernels {rec['library_kernels']}, "
+            f"refused {rec['library_refused']}")
+    return rec
 
 
 def main() -> int:
@@ -143,26 +171,47 @@ def main() -> int:
     def randn(rows, D):
         return torch.randn((rows, D), generator=gen, device="cuda")
 
-    def check_flat(op, csr, dt, dims):
+    def check_flat(op, csr, dt, dims, library=(), split=()):
         mat = tb.bsr_flat_from_csr(csr, block=128, group=GROUP, dtype=dt,
                                    device="cuda")
         for D in dims:
             V = randn(mat.nrows, D)
             name = f"flat {op} {str(dt).split('.')[-1]} D={D}"
             log(f"[2 kernel] {name}: steps={mat.nsteps}x{mat.G}")
-            cases[name] = compare(name, lambda: tb.bsr_spmm_flat(mat, V),
-                                  lambda: tb.bsr_spmm_flat_reference(mat, V))
+            cases[name] = compare(name, mat, V,
+                                  lambda: tb.bsr_spmm_flat(mat, V),
+                                  lambda: tb.bsr_spmm_flat_reference(mat, V),
+                                  library=D in library)
+            if D in split:   # D over two CTAs of D/2 columns each
+                cases[f"{name} cols={D // 2}"] = compare(
+                    f"{name} cols={D // 2}", mat, V,
+                    lambda: tb.bsr_spmm_flat(mat, V, tile_cols=D // 2),
+                    lambda: tb.bsr_spmm_flat_reference(mat, V))
 
-    def check_ell(name, mat, D, row_chunk=None, iters=20):
+    def check_ell(name, mat, D, row_chunk=None, iters=20, library=False):
         V = randn(mat.nrows, D)
         log(f"[2 kernel] {name}: Kbr={mat.Kb} maxblk={mat.bcols.shape[1]}")
         cases[name] = compare(
-            name, lambda: tb.bcsr_spmm(mat, V),
+            name, mat, V, lambda: tb.bcsr_spmm(mat, V),
             lambda: tb.bcsr_spmm_reference(mat, V, row_chunk=row_chunk),
-            iters)
+            iters, library)
 
-    for dt in (torch.bfloat16, torch.float32):
-        check_flat("S~", St, dt, (32, 128))
+    def q_operator(ops):
+        """The association operator Q: its block layout from the operand
+        builder, random edge values scattered as the solver does."""
+        Kbr, maxblkQ = ops.q_bcols.shape
+        qvals = torch.zeros(Kbr * 128 * maxblkQ * 128, dtype=torch.bfloat16,
+                            device="cuda")
+        evals = torch.randn((int(ops.q_eidx.max()) + 1,), generator=gen,
+                            device="cuda")
+        qvals[ops.q_pos] = evals[ops.q_eidx].to(torch.bfloat16)
+        return tb.BlockEll(bcols=ops.q_bcols,
+                           blocks=qvals.reshape(Kbr, 128, maxblkQ, 128),
+                           nrows=ops.s_blocks.nrows)
+
+    check_flat("S~", St, torch.bfloat16, (32, 48, 64, 128), library=(48, 128),
+               split=(128,))
+    check_flat("S~", St, torch.float32, (32, 128))
     # The 100k path's other flat operand, S̃ᵀ: another CSR, with its own
     # count of steps per block-row.
     check_flat("S~T", St.transpose().tocsr(), torch.bfloat16, (128,))
@@ -171,20 +220,8 @@ def main() -> int:
         for D in dims:
             check_ell(f"ell S~ {str(dt).split('.')[-1]} D={D}", mat, D)
         del mat
-    # The association operator Q of the 100k path: its block layout from
-    # the operand builder, random edge values scattered as the solver does.
-    ops = tb.bcsr_operands_from_state(S, Q, block=128, dtype=torch.bfloat16,
-                                      device="cuda")
-    Kbr, maxblkQ = ops.q_bcols.shape
-    qvals = torch.zeros(Kbr * 128 * maxblkQ * 128, dtype=torch.bfloat16,
-                        device="cuda")
-    evals = torch.randn((int(ops.q_eidx.max()) + 1,), generator=gen,
-                        device="cuda")
-    qvals[ops.q_pos] = evals[ops.q_eidx].to(torch.bfloat16)
-    check_ell("ell Q bfloat16 D=128", tb.BlockEll(
-        bcols=ops.q_bcols, blocks=qvals.reshape(Kbr, 128, maxblkQ, 128),
-        nrows=ops.s_blocks.nrows), 128)
-    del ops, qvals, evals
+    check_ell("ell Q bfloat16 D=128", q_operator(tb.bcsr_operands_from_state(
+        S, Q, block=128, dtype=torch.bfloat16, device="cuda")), 128)
     torch.cuda.empty_cache()
 
     # Kernel #2 on its path, the SpMM bench entry point (its vres runs are
@@ -197,19 +234,26 @@ def main() -> int:
     vres_case = next(r for r in bench["runs"] if r["impl"] == "vres_G8")
     torch.cuda.empty_cache()
 
-    # The million-link S̃ through the block-ELL kernel.
+    # The million-link S̃ and Q through the block-ELL kernel, from the
+    # operand builder of the million-link path.
     t0 = time.time()
     S1, Q1, _ = LargeEnv(MILLION_CELL, RHO, seed=SEED).generate_state_csr()
-    St1 = build_st_csr(S1, Q1)
-    mat = tb.bcsr_from_csr(St1, block=128, dtype=torch.bfloat16,
-                           device="cuda")
-    log(f"[2 kernel] million-link operand: K={St1.shape[0]} "
-        f"nnz(S~)={St1.nnz} blocks {tuple(mat.blocks.shape)} "
-        f"[{time.time() - t0:.1f}s]")
-    del S1, Q1, St1
+    ops = tb.bcsr_operands_from_state(S1, Q1, block=128, dtype=torch.bfloat16,
+                                      device="cuda")
+    mat = ops.s_blocks
+    log(f"[2 kernel] million-link operand: K={S1.shape[0]} "
+        f"nnz(S~)={ops.nnz} blocks {tuple(mat.blocks.shape)} "
+        f"Q slots {tuple(ops.q_bcols.shape)} [{time.time() - t0:.1f}s]")
+    del S1, Q1
     check_ell("ell S~ 1M bfloat16 D=48", mat, 48,
-              row_chunk=MILLION_ROW_CHUNK, iters=5)
-    del mat, S, Q, St
+              row_chunk=MILLION_ROW_CHUNK, iters=5, library=True)
+    del mat
+    qop = q_operator(ops)
+    del ops
+    torch.cuda.empty_cache()
+    check_ell("ell Q 1M bfloat16 D=48", qop, 48,
+              row_chunk=MILLION_ROW_CHUNK, iters=5, library=True)
+    del qop, S, Q, St
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -283,12 +327,15 @@ def main() -> int:
                              f"need {need}")
     log(f"[done] {time.time() - t_start:.1f}s")
 
-    def entry(name, launches, case, source):
+    def entry(name, launches, case, source, library=None):
+        library = library or case
         return {"name": name, "route": "cuda",
                 "source": f"sig_sdp_mmw_torch/ops/kernels/csrc/{source}",
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
-                "plain_ms": case["plain_ms"]}
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": library["library_ms"]}
 
     log(gpu)
     log(json.dumps({"kernels": [
@@ -296,7 +343,9 @@ def main() -> int:
               "bsr_spmm_flat.cu"),
         entry("bcsr_spmm_ell", ell_launches, cases["ell S~ 1M bfloat16 D=48"],
               "bcsr_spmm_ell.cu"),
-        entry("bsr_spmm_vres", vres_launches, vres_case, "bsr_spmm_vres.cu"),
+        # The bench's vres product is the flat S̃ bf16 D=48 case's.
+        entry("bsr_spmm_vres", vres_launches, vres_case, "bsr_spmm_vres.cu",
+              cases["flat S~ bfloat16 D=48"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,17 @@ Every kernel run is checked against its plain PyTorch version on the same
 inputs (to ``REL_TOL`` of max|out|; a disagreement raises) and reports the
 stored block MB, its time and the plain version's (CUDA events, median of 3
 rounds of ``iters`` launches), the effective GB/s over the stored block
-bytes, and its relative error against the ELL result.  Needs a CUDA device.
-Returns the record; writes it as JSON only to ``out_path``.
+bytes, its bound (:func:`bound`: the bytes the product needs over the
+card's memory rate, or its operations over the peak rate, whichever is
+larger) with the share of it reached, and its relative error against the
+ELL result.  Needs a CUDA device.  Returns the record; writes it as JSON
+only to ``out_path``.
+
+The bound counts only what these inputs need (:func:`bytes_needed`): the
+real blocks, not the padding slots, V read once in float32 and the output
+written once in float32.  :func:`library_spmm` is the yardstick PyTorch
+call for the same product (``torch.sparse_bsr_tensor(...) @ V`` on the real
+blocks); the port never calls it.
 
     python -m sig_sdp_mmw_torch.experiments.bench_flat_spmm --out bench.json
 """
@@ -63,6 +72,121 @@ def check(name: str, out: torch.Tensor, ref: torch.Tensor) -> dict:
     return dict(max_abs_err=err, tol=tol)
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
+# memory, and the arithmetic each block dtype runs on (bf16 tensor cores;
+# float32 FMA on the CUDA cores, no TF32).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def real_slots(mat) -> torch.Tensor:
+    """Bool mask over the stored slots of ``mat`` that hold a real block:
+    [Kbr, maxblk] for a BlockEll, [nsteps*G] for a FlatBsr.
+
+    The packers place a row's real blocks first in ascending column-block
+    order and pad with zero blocks at column-block 0, so a slot after the
+    row's first is real exactly when its column-block is not 0, and the
+    first slot is real when its block is not all zero (an empty row's)."""
+    from sig_sdp_mmw_torch.ops.bcsr import BlockEll
+
+    mask = mat.bcols != 0
+    if isinstance(mat, BlockEll):
+        mask[:, 0] = mat.blocks[:, :, 0, :].reshape(mat.Kb, -1).ne(0).any(1)
+    else:
+        first = mat.row_ptr[:-1].long()
+        mask[first * mat.G] = mat.blocks[first, :, :mat.Bc].reshape(
+            first.shape[0], -1).ne(0).any(1)
+    return mask
+
+
+def _block_shape(mat):
+    return (mat.Brow, mat.B) if hasattr(mat, "Brow") else (mat.Br, mat.Bc)
+
+
+def bytes_needed(mat, D: int) -> int:
+    """Device-memory bytes ``mat @ V`` needs for a [nrows, D] float32 V:
+    each real block once (in its stored dtype), V read once and the float32
+    output written once."""
+    Br, Bc = _block_shape(mat)
+    nblk = int(real_slots(mat).sum())
+    return nblk * Br * Bc * mat.blocks.element_size() + 2 * mat.nrows * D * 4
+
+
+def block_height_bytes(csr, heights=(8, 16, 32, 64, 128),
+                       itemsize=2) -> dict:
+    """Real-block bytes of a [Br, 128]-blocked operand of the scipy matrix
+    ``csr``, for each block height Br: one block per distinct (row // Br,
+    column // 128) pair of its entries."""
+    coo = csr.tocoo()
+    col = coo.col.astype(np.int64) // 128
+    ncb = int(col.max(initial=0)) + 1
+    return {Br: int(np.unique(coo.row.astype(np.int64) // Br * ncb + col
+                              ).size) * Br * 128 * itemsize
+            for Br in heights}
+
+
+def bound(mat, D: int) -> dict:
+    """The least time the card could take for ``mat @ V``: the larger of
+    :func:`bytes_needed` over the memory rate and the real blocks' multiply-
+    adds (2 flop each) over the block dtype's peak rate."""
+    Br, Bc = _block_shape(mat)
+    nbytes = bytes_needed(mat, D)
+    flop = 2 * int(real_slots(mat).sum()) * Br * Bc * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / PEAK_FLOPS[mat.blocks.dtype] * 1e3
+    return dict(bytes_needed=nbytes, flop=flop, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_operand(mat, dtype) -> torch.Tensor:
+    """``mat`` as a ``torch.sparse_bsr_tensor`` of its real blocks only (the
+    padding slots' repeated column-block 0 is no valid BSR), in ``dtype``."""
+    from sig_sdp_mmw_torch.ops.bcsr import BlockEll
+
+    mask = real_slots(mat)
+    if isinstance(mat, BlockEll):
+        vals = mat.blocks.permute(0, 2, 1, 3)[mask]
+        counts = mask.sum(1)
+    else:
+        vals = mat.blocks.reshape(mat.nsteps, mat.Br, mat.G, mat.Bc).permute(
+            0, 2, 1, 3).reshape(-1, mat.Br, mat.Bc)[mask]
+        counts = torch.bincount(mat.brows.long().repeat_interleave(mat.G)[mask],
+                                minlength=mat.Kbr)
+    crow = torch.zeros(counts.shape[0] + 1, dtype=torch.int32,
+                       device=mask.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_bsr_tensor(crow, mat.bcols[mask].int(), vals.to(dtype),
+                                   size=(mat.nrows, mat.nrows))
+
+
+def library_spmm(mat, V: torch.Tensor, iters: int) -> dict:
+    """Time of the yardstick PyTorch call for ``mat @ V``: the BSR tensor of
+    the real blocks times V, in bfloat16 when PyTorch runs that on the
+    card, else in float32; with the dtype used, the kernels the profiler
+    saw, and why a dtype was refused.  ``library_ms`` is None when neither
+    runs."""
+    from sig_sdp_mmw_torch.experiments.profile_iteration import profile
+
+    rec = {"library_ms": None, "library_dtype": None, "library_kernels": [],
+           "library_refused": {}}
+    for dt in (torch.bfloat16, torch.float32):
+        try:
+            A = library_operand(mat, dt)
+            Vl = V.to(dt)
+            fn = lambda: A @ Vl   # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            rec["library_refused"][str(dt)] = str(e).splitlines()[0][:200]
+            continue
+        rec.update(library_ms=time_ms(fn, iters), library_dtype=str(dt),
+                   library_kernels=[e["name"] for e in profile(fn, 3)["top"]])
+        del A, Vl
+        break
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(cell=183, D=48, iters=30, groups=(4, 8, 16, 32), out_path=None,
          device="cuda"):
     from sig_sdp_mmw_torch.core.ell import build_st_csr
@@ -98,8 +222,9 @@ def main(cell=183, D=48, iters=30, groups=(4, 8, 16, 32), out_path=None,
     rec = {"impl": "ell", "maxblk": int(ell.bcols.shape[1]),
            "stored_mb": ell_bytes / 1e6, "ms": t,
            "plain_ms": time_ms(lambda: bcsr_spmm_reference(ell, V), iters),
-           "eff_gbps": ell_bytes / t / 1e6,
+           "eff_gbps": ell_bytes / t / 1e6, **bound(ell, D),
            **check("ell", r_ell, bcsr_spmm_reference(ell, V))}
+    rec["share"] = rec["bound_ms"] / t
     print(rec)
     out["runs"].append(rec)
     del ell
@@ -111,12 +236,14 @@ def main(cell=183, D=48, iters=30, groups=(4, 8, 16, 32), out_path=None,
         want = bsr_spmm_flat_reference(flat, V)
         plain_ms = time_ms(lambda: bsr_spmm_flat_reference(flat, V), iters)
         fbytes = flat.blocks.numel() * 2
+        fbound = bound(flat, D)
         for name, fn in (("flat", bsr_spmm_flat), ("vres", bsr_spmm_vres)):
             r = fn(flat, V)
             t = time_ms(lambda: fn(flat, V), iters)
             rec = {"impl": f"{name}_G{G}", "nsteps": flat.nsteps,
                    "stored_mb": fbytes / 1e6, "ms": t, "plain_ms": plain_ms,
-                   "eff_gbps": fbytes / t / 1e6,
+                   "eff_gbps": fbytes / t / 1e6, **fbound,
+                   "share": fbound["bound_ms"] / t,
                    "rel_err_vs_ell":
                        float((r - r_ell).abs().max()) / max(ref_scale, 1e-9),
                    **check(f"{name}_G{G}", r, want)}

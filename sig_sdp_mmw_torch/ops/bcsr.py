@@ -202,13 +202,22 @@ def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
 
 
 def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
-              row_chunk: Optional[int] = None) -> torch.Tensor:
+              row_chunk: Optional[int] = None,
+              tile_cols: Optional[int] = None) -> torch.Tensor:
     """BlockEll [Kp, Kp] x [Kp, D] -> [Kp, D].  A CPU tensor goes to the
     plain version (``row_chunk`` bounds its transients); a CUDA tensor
     launches the block-ELL kernel on the current stream, which needs no
     chunking, or raises.  V's columns are padded with zeros to a multiple of
     8 for the kernel (the gap Lanczos sends D=1) and the result is sliced
-    back.  ``bcsr_spmm.launches`` counts kernel launches."""
+    back.  ``bcsr_spmm.launches`` counts kernel launches.
+
+    128-row bfloat16 blocks take the tensor-core ring tile: V is rounded to
+    bfloat16 here, once per call (the plain version's cast), and each CTA
+    covers ``tile_cols`` output columns (default :func:`ring_tile_cols`).
+    That kernel skips padding slots: it relies on the packers' layout, where
+    a row's real blocks come first and every later slot at column-block 0
+    holds zeros (``tests/test_torch_padding.py`` holds every packer to it).
+    """
     if V.device.type == "cpu":
         return bcsr_spmm_reference(mat, V, row_chunk)
     if V.device.type != "cuda":
@@ -221,18 +230,26 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     from sig_sdp_mmw_torch.ops.kernels import bcsr_spmm_ell_library
 
     lib = bcsr_spmm_ell_library()
-    out = torch.empty((mat.nrows, Vk.shape[1]), dtype=torch.float32,
-                      device=V.device)
+    D8 = Vk.shape[1]
+    out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
+    stream = torch.cuda.current_stream(V.device).cuda_stream
     with torch.cuda.device(V.device):
-        rc = lib.bcsr_spmm_ell_launch(
-            mat.bcols.data_ptr(), mat.blocks.data_ptr(),
-            _KERNEL_BLOCK_DTYPES[mat.blocks.dtype], mat.Brow, Vk.data_ptr(),
-            out.data_ptr(), mat.Kb, mat.bcols.shape[1], Vk.shape[1],
-            torch.cuda.current_stream().cuda_stream)
+        if mat.Brow == 128 and mat.blocks.dtype == torch.bfloat16:
+            cols, Vb = ring_operand(Vk, tile_cols)
+            rc = lib.bcsr_spmm_ell_bf16_launch(
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), Vb.data_ptr(),
+                Vb.shape[1], out.data_ptr(), mat.Kb, mat.bcols.shape[1], D8,
+                cols, stream)
+        else:
+            rc = lib.bcsr_spmm_ell_launch(
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(),
+                _KERNEL_BLOCK_DTYPES[mat.blocks.dtype], mat.Brow,
+                Vk.data_ptr(), out.data_ptr(), mat.Kb, mat.bcols.shape[1], D8,
+                stream)
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm: launch failed with cudaError {rc}")
     bcsr_spmm.launches += 1
-    return out if Vk.shape[1] == D else out[:, :D]
+    return out if D8 == D else out[:, :D]
 
 
 bcsr_spmm.launches = 0
@@ -423,6 +440,36 @@ def bsr_spmm_flat_reference(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
 
 _KERNEL_BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# Output columns one CTA of the bfloat16 ring tile may cover (the widths
+# instantiated in ops/kernels/csrc/spmm_tile.cuh, SPMM_RING_COLS).
+RING_TILE_COLS = (8, 16, 32, 48, 64, 96, 128)
+
+
+def ring_tile_cols(D: int) -> int:
+    """Columns per CTA of the ring tile for a D-column V (D a multiple of
+    8): the narrowest instantiated width that covers all of D, so each
+    block leaves device memory once per call; 128 above 128."""
+    return next((c for c in RING_TILE_COLS if c >= D), RING_TILE_COLS[-1])
+
+
+def ring_operand(V: torch.Tensor, tile_cols: Optional[int] = None
+                 ) -> Tuple[int, torch.Tensor]:
+    """(columns per CTA, V rounded to bfloat16) for the ring tile.  The
+    rounding is the plain version's cast (round to nearest even), so every
+    product is the same; columns past D up to a whole number of tiles are
+    zero.  ``tile_cols`` overrides :func:`ring_tile_cols`."""
+    D = V.shape[1]
+    cols = ring_tile_cols(D) if tile_cols is None else int(tile_cols)
+    if cols not in RING_TILE_COLS:
+        raise ValueError(f"tile_cols must be one of {RING_TILE_COLS}, "
+                         f"got {tile_cols}")
+    ldv = -(-D // cols) * cols
+    if ldv == D:
+        return cols, V.to(torch.bfloat16)
+    Vb = torch.zeros((V.shape[0], ldv), dtype=torch.bfloat16, device=V.device)
+    Vb[:, :D] = V
+    return cols, Vb
+
 
 def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
     """Why the CUDA kernel cannot take these operands (None if it can)."""
@@ -451,10 +498,17 @@ def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
     return None
 
 
-def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
+def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
+                  tile_cols: Optional[int] = None) -> torch.Tensor:
     """``A @ V`` on flat block-CSR.  A CPU tensor goes to the plain version;
     a CUDA tensor launches the kernel on the current stream, or raises.
-    ``bsr_spmm_flat.launches`` counts kernel launches."""
+    ``bsr_spmm_flat.launches`` counts kernel launches.
+
+    bfloat16 blocks take the tensor-core ring tile, as in :func:`bcsr_spmm`:
+    V is rounded to bfloat16 here once, ``tile_cols`` output columns per CTA
+    (default :func:`ring_tile_cols`), and the slots that pad a row to a
+    multiple of G (column-block 0 after the row's first slot, all zeros)
+    are skipped."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
@@ -465,14 +519,21 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     from sig_sdp_mmw_torch.ops.kernels import bsr_spmm_flat_library
 
     lib = bsr_spmm_flat_library()
-    out = torch.empty((mat.nrows, V.shape[1]), dtype=torch.float32,
-                      device=V.device)
+    D = V.shape[1]
+    out = torch.empty((mat.nrows, D), dtype=torch.float32, device=V.device)
+    stream = torch.cuda.current_stream(V.device).cuda_stream
     with torch.cuda.device(V.device):
-        rc = lib.bsr_spmm_flat_launch(
-            mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-            mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
-            V.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, V.shape[1],
-            torch.cuda.current_stream().cuda_stream)
+        if mat.blocks.dtype == torch.bfloat16:
+            cols, Vb = ring_operand(V, tile_cols)
+            rc = lib.bsr_spmm_flat_bf16_launch(
+                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+                mat.blocks.data_ptr(), Vb.data_ptr(), Vb.shape[1],
+                out.data_ptr(), mat.Kbr, mat.G, D, cols, stream)
+        else:
+            rc = lib.bsr_spmm_flat_launch(
+                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+                mat.blocks.data_ptr(), V.data_ptr(), out.data_ptr(), mat.Kbr,
+                mat.G, D, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_flat: launch failed with cudaError {rc}")
     bsr_spmm_flat.launches += 1

@@ -12,7 +12,10 @@ start every ``nvcc`` together.
 * ``bsr_spmm_vres``  — flat block-CSR SpMM with V resident in L2
   (``bsr_spmm_vres.cu``).
 
-The first two share their tile code through ``spmm_tile.cuh``; a library's
+The first two share their tile code through ``spmm_tile.cuh`` (the
+tensor-core ring tile of bfloat16 blocks, the FMA tile of the rest), and each
+has two entry points: ``*_launch`` for float32 V on the FMA tile and
+``*_bf16_launch`` for 128-row bfloat16 blocks on the ring tile.  A library's
 build hash covers the headers of ``csrc/`` as well as its own source.
 """
 
@@ -22,7 +25,7 @@ import ctypes
 import hashlib
 import os
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 from sig_sdp_mmw_torch.utils.build import build_shared_library
 
@@ -31,10 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_name_locks: Dict[str, threading.Lock] = {}
-_libs: Dict[str, ctypes.CDLL] = {}
+_name_locks: Dict[Tuple[str, ...], threading.Lock] = {}
+_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 # Compiler output of each build made by this process (ptxas register and
-# shared-memory report), by kernel name.
+# shared-memory report), by kernel name (and defines, for a variant).
 build_logs: Dict[str, str] = {}
 
 
@@ -55,36 +58,46 @@ def _headers_digest() -> str:
     return h.hexdigest()
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<name>.cu``; argtypes are set by the
-    caller's binding."""
+def load_kernel_library(name: str, defines: Tuple[str, ...] = ()
+                        ) -> ctypes.CDLL:
+    """Build (once) and load ``csrc/<name>.cu``, with ``-D`` ``defines``
+    for a variant (a library of its own); argtypes are set by the caller's
+    binding."""
+    key = (name, *defines)
     with _lock:
-        lock = _name_locks.setdefault(name, threading.Lock())
+        lock = _name_locks.setdefault(key, threading.Lock())
     with lock:
-        if name not in _libs:
+        if key not in _libs:
+            cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)]
             path, log = build_shared_library(os.path.join(CSRC, f"{name}.cu"),
-                                             "kernels", [_nvcc(), *NVCC_FLAGS],
+                                             "kernels", cmd,
                                              key=_headers_digest())
-            build_logs[name] = log
-            _libs[name] = ctypes.CDLL(path)
-        return _libs[name]
+            build_logs[" ".join(key)] = log
+            _libs[key] = ctypes.CDLL(path)
+        return _libs[key]
 
 
-def bsr_spmm_flat_library() -> ctypes.CDLL:
-    lib = load_kernel_library("bsr_spmm_flat")
+def bsr_spmm_flat_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = load_kernel_library("bsr_spmm_flat", defines)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bsr_spmm_flat_launch.restype = i32
-    lib.bsr_spmm_flat_launch.argtypes = [vp, vp, vp, i32, vp, vp, i32, i32,
-                                         i32, vp]
+    lib.bsr_spmm_flat_launch.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                         vp]
+    lib.bsr_spmm_flat_bf16_launch.restype = i32
+    lib.bsr_spmm_flat_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, i32,
+                                              i32, i32, i32, vp]
     return lib
 
 
-def bcsr_spmm_ell_library() -> ctypes.CDLL:
-    lib = load_kernel_library("bcsr_spmm_ell")
+def bcsr_spmm_ell_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = load_kernel_library("bcsr_spmm_ell", defines)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bcsr_spmm_ell_launch.restype = i32
     lib.bcsr_spmm_ell_launch.argtypes = [vp, vp, i32, i32, vp, vp, i64, i32,
                                          i32, vp]
+    lib.bcsr_spmm_ell_bf16_launch.restype = i32
+    lib.bcsr_spmm_ell_bf16_launch.argtypes = [vp, vp, vp, i32, vp, i64, i32,
+                                              i32, i32, vp]
     return lib
 
 

@@ -4,31 +4,44 @@
 // Replaces the TPU kernel sig_sdp_mmw_tpu/ops/bcsr.py::bcsr_spmm_pallas
 // (same operands, same contract: V is cast to the block dtype, products
 // accumulate in float32; padding slots point at column-block 0 and hold
-// zero values, so they need no masking).
+// zero values).
 //
 // Operands (all device pointers, contiguous):
-//   bcols   [Kbr, maxblk] int32 column-block id of each slot
+//   bcols   [Kbr, maxblk] int32 column-block id of each slot; a row's real
+//           blocks come first, then padding at column-block 0
 //   blocks  [Kbr, BR, maxblk, 128] float32 or bfloat16, BR = 128 or 8
-//   V       [Kbr*BR, D] float32, D a multiple of 8
+//   V       [Kbr*BR, D] float32, D a multiple of 8 (FMA entry point), or
+//   Vb      [Kbr*BR, ldv] bfloat16, rounded by the wrapper, zero past D
+//           (bf16 entry point)
 //   out     [Kbr*BR, D] float32 (written in full, no prior zeroing needed)
 //
 // The TPU kernel walks a (Kbr, maxblk) grid in order and accumulates each
 // (row, slot) product into the output row-block resident in VMEM.  On this
-// card CTAs run in no order, so one CTA per (block-row, 64-column D tile)
-// walks its row's maxblk slots itself and keeps the output tile in
-// registers: no atomics, deterministic sums.  A block-row stored as
-// [BR, maxblk*128] is one flat block-CSR step with G = maxblk, so the tile
-// bodies are the flat kernel's (spmm_tile.cuh):
-//   * 128-row bfloat16 blocks: tensor cores (WMMA m16n16k16, fp32 sums);
-//   * 128-row float32 blocks and all 8-row blocks: fp32 FMA on the CUDA
-//     cores (a bf16 x bf16-rounded product is exact in fp32, so this agrees
-//     with the tensor-core path up to summation order).
-// What bounds it: the stored block bytes (3.1 GB of bf16 per S-tilde apply
-// at K = 1,009,200, a few percent of them nonzero) streamed once per D tile;
-// the D tiles of a block-row are neighbours in the launch order, so the
-// second tile reads the row's blocks from L2.  The grid is one-dimensional
-// (block-row major), so 8-row blocks at a million links (126,150 block-rows)
-// fit it.  Deliberately simple: no cp.async/TMA pipelining and no wgmma.
+// card CTAs run in no order, so one CTA per (block-row, D tile) walks its
+// row's slots itself and keeps the output tile in registers: no atomics,
+// deterministic sums.  A block-row stored as [BR, maxblk*128] is one flat
+// block-CSR step with G = maxblk, so the tile bodies are the flat kernel's
+// (spmm_tile.cuh).
+//
+// What bounds it: device-memory bytes.  At K = 1,009,200 (maxblk 12, 1.6%
+// of block entries nonzero) an S-tilde apply needs 1.98 GB of real bf16
+// blocks plus V and out, 0.71 ms at 3.35 TB/s; its 9.5e10 flop take 0.10 ms
+// on the tensor cores.  The 128-row bf16 path (every product on the main
+// paths) therefore:
+//   * skips the 36% of slots that are padding (1.1 GB of zeros of the
+//     3.10 GB stored per S-tilde operand; the rule is at ring_tile_bf16);
+//   * covers all of D (48 at 1M) in one CTA, so each block leaves device
+//     memory once per call, with N = D rounded up to 8..128 columns;
+//   * reads V as bfloat16 rounded once by the wrapper (half the gathered V
+//     bytes of float32);
+//   * keeps 2-3 slices of 16 KB of A per CTA in flight through a cp.async
+//     ring, two CTAs per SM, with mma.sync bf16 on the tensor cores.
+// 128-row float32 blocks and all 8-row blocks (off the main paths) take fp32
+// FMA on the CUDA cores, 64 columns per CTA, every slot walked (a bf16 x
+// bf16-rounded product is exact in fp32, so they agree with the tensor-core
+// path up to summation order).  The grid is one-dimensional (block-row
+// major, the D tiles of a row adjacent), so 8-row blocks at a million links
+// (126,150 block-rows) fit it.
 
 #include "spmm_tile.cuh"
 
@@ -45,23 +58,43 @@ bcsr_spmm_ell_fma(const int* __restrict__ bcols, const T* __restrict__ blocks,
                         r, d0);
 }
 
-__global__ void __launch_bounds__(spmm::WMMA_NT)
-bcsr_spmm_ell_wmma(const int* __restrict__ bcols,
+template <int N>
+__global__ void __launch_bounds__(spmm::ring::NT, 2)
+bcsr_spmm_ell_ring(const int* __restrict__ bcols,
                    const __nv_bfloat16* __restrict__ blocks,
-                   const float* __restrict__ V, float* __restrict__ out,
-                   int maxblk, int D, int ndt) {
+                   const __nv_bfloat16* __restrict__ Vb, int ldv,
+                   float* __restrict__ out, int maxblk, int D, int ndt) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int64_t r = blockIdx.x / ndt;
-  const int d0 = (blockIdx.x % ndt) * spmm::DT;
-  spmm::wmma_tile_bf16(bcols, blocks, V, out, (int)r, (int)r + 1, maxblk, D,
-                       r, d0);
+  const int d0 = (blockIdx.x % ndt) * N;
+  spmm::ring_tile_bf16<N>(bcols, blocks, Vb, ldv, out, r * maxblk,
+                          (r + 1) * maxblk, maxblk, D, r, d0, smem);
+}
+
+template <int N>
+int launch_ring(const int* bcols, const __nv_bfloat16* blocks,
+                const __nv_bfloat16* Vb, int ldv, float* out, long long Kbr,
+                int maxblk, int D, cudaStream_t st) {
+  const long long ndt = (D + N - 1) / N;
+  if (ldv < ndt * N || Kbr * ndt > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = spmm::ring::Cfg<N>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      bcsr_spmm_ell_ring<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bcsr_spmm_ell_ring<N><<<(unsigned)(Kbr * ndt), spmm::ring::NT, smem, st>>>(
+      bcols, blocks, Vb, ldv, out, maxblk, D, (int)ndt);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// blk_dtype: 0 = float32 blocks, 1 = bfloat16 blocks; brow: 128 or 8.
-// Returns the cudaError_t of the launch (0 = launched).
+// Float32 V through the FMA tile.  blk_dtype: 0 = float32 blocks, 1 =
+// bfloat16 blocks; brow: 128 or 8 (128-row bfloat16 blocks go to
+// bcsr_spmm_ell_bf16_launch).  Returns the cudaError_t of the launch (0 =
+// launched).
 int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int blk_dtype,
                          int brow, const void* V, void* out, long long Kbr,
                          int maxblk, int D, void* stream) {
@@ -76,10 +109,7 @@ int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int blk_dtype,
   const float* v = static_cast<const float*>(V);
   float* o = static_cast<float*>(out);
   const int nd = (int)ndt;
-  if (brow == 128 && blk_dtype == 1) {
-    bcsr_spmm_ell_wmma<<<grid, spmm::WMMA_NT, 0, st>>>(
-        bc, static_cast<const __nv_bfloat16*>(blocks), v, o, maxblk, D, nd);
-  } else if (brow == 128 && blk_dtype == 0) {
+  if (brow == 128 && blk_dtype == 0) {
     bcsr_spmm_ell_fma<128, float><<<grid, spmm::Fma<128>::NT, 0, st>>>(
         bc, static_cast<const float*>(blocks), v, o, maxblk, D, nd);
   } else if (brow == 8 && blk_dtype == 1) {
@@ -92,6 +122,33 @@ int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int blk_dtype,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// 128-row bfloat16 blocks through the ring tile: Vb [Kbr*128, ldv] bf16,
+// ncols output columns per CTA (8, 16, 32, 48, 64, 96 or 128; ldv >=
+// ceil(D / ncols) * ncols), out [Kbr*128, D] float32.  Returns the
+// cudaError_t of the launch (0 = launched).
+int bcsr_spmm_ell_bf16_launch(const void* bcols, const void* blocks,
+                              const void* Vb, int ldv, void* out,
+                              long long Kbr, int maxblk, int D, int ncols,
+                              void* stream) {
+  if (Kbr <= 0 || maxblk <= 0 || D <= 0 || D % 8 != 0 || ldv % 8 != 0 ||
+      Kbr > 0x7fffffffLL / 128)
+    return (int)cudaErrorInvalidValue;
+  const int* bc = static_cast<const int*>(bcols);
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(blocks);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(Vb);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (ncols) {
+#define SPMM_CASE(N) \
+  case N:            \
+    return launch_ring<N>(bc, a, v, ldv, o, Kbr, maxblk, D, st);
+    SPMM_RING_COLS(SPMM_CASE)
+#undef SPMM_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

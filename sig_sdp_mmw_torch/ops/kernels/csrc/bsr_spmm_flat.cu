@@ -8,33 +8,35 @@
 // Operands (all device pointers, contiguous):
 //   row_ptr [Kbr+1] int32  step offsets per block-row (steps of one block-row
 //                          are consecutive, every row has at least one step)
-//   bcols   [nsteps*G] int32 column-block id of each stored block
+//   bcols   [nsteps*G] int32 column-block id of each stored block; a row's
+//                          real blocks come first, then padding to a multiple
+//                          of G at column-block 0
 //   blocks  [nsteps, 128, G*128] float32 or bfloat16: G blocks side by side
-//   V       [nrows, D] float32, D a multiple of 8
+//   V       [nrows, D] float32, D a multiple of 8 (float32 entry point), or
+//   Vb      [nrows, ldv] bfloat16, rounded by the wrapper, zero past D
+//           (bf16 entry point)
 //   out     [nrows, D] float32 (written in full, no prior zeroing needed)
 //
-// What bounds it on this card: the bytes of the stored blocks.  The blocks
-// are dense 128x128 tiles of an interference graph that fill only a few
-// percent of each tile, so the kernel streams ~32 KB (bf16) of mostly zeros
-// per block while V's column-blocks are reused by many block-rows and stay
-// in the 50 MB L2.  The design keeps that stream to one pass per D tile:
-//   * one CTA per (block-row, 64-column D tile); the CTA walks its row's
-//     steps and their G blocks in order and keeps the [128, 64] output tile
-//     in registers (tensor-core fragments for bf16), so there are no atomics,
-//     no cross-CTA reduction and the result is deterministic;
-//   * the D tiles of one block-row are neighbours in the launch order
-//     (blockIdx.x), so they run together and the second tile finds the
-//     row's blocks in L2 instead of streaming them again;
-//   * the tile bodies (spmm_tile.cuh, shared with the block-ELL kernel)
-//     stage each [128, 32] slice of a block and the matching [32, 64] slice
-//     of V through shared memory once, with coalesced (16-byte for bf16)
-//     reads; V is rounded to the block dtype as it is staged;
-//   * bf16 blocks multiply on the tensor cores (WMMA m16n16k16, fp32
-//     accumulate: each bf16 x bf16 product is exact in fp32, so this equals
-//     the TPU kernel's preferred_element_type=float32 dot up to summation
-//     order); float32 blocks use fp32 FMA on the CUDA cores, keeping full
-//     float32 precision (no TF32).
-// Deliberately simple: no cp.async/TMA pipelining and no wgmma yet.
+// What bounds it on this card: device-memory bytes.  The blocks are dense
+// 128x128 tiles of an interference graph that fill only a few percent of
+// each tile, so at K = 100,467 (G = 8) an S-tilde apply at D = 128 needs
+// 0.192 GB of real bf16 blocks plus 0.10 GB of V and out, 0.088 ms at
+// 3.35 TB/s, against 0.025 ms of tensor-core work.  The design:
+//   * one CTA per (block-row, D tile) walks the row's steps and their G
+//     blocks in order and keeps the output tile in registers: no atomics,
+//     no cross-CTA reduction, a deterministic result;
+//   * bf16 blocks go through ring_tile_bf16 (spmm_tile.cuh, shared with the
+//     block-ELL kernel): the 23% of slots that pad rows to a multiple of G
+//     are skipped, all of D up to 128 is one tile (each block leaves device
+//     memory once), V is read as bfloat16 rounded once by the wrapper, and
+//     2-3 slices of 16 KB of A per CTA stay in flight through a cp.async
+//     ring feeding mma.sync bf16 (each bf16 x bf16 product is exact in fp32,
+//     so this equals the TPU kernel's preferred_element_type=float32 dot up
+//     to summation order);
+//   * float32 blocks (off the main paths) use fp32 FMA on the CUDA cores,
+//     64 columns per CTA, keeping full float32 precision (no TF32); the D
+//     tiles of one block-row are neighbours in the launch order, so the
+//     second tile finds the row's blocks in L2.
 
 #include "spmm_tile.cuh"
 
@@ -51,44 +53,80 @@ bsr_spmm_flat_f32(const int* __restrict__ row_ptr,
                              row_ptr[r + 1], G, D, r, blockIdx.x * spmm::DT);
 }
 
-__global__ void __launch_bounds__(spmm::WMMA_NT)
-bsr_spmm_flat_bf16(const int* __restrict__ row_ptr,
+template <int N>
+__global__ void __launch_bounds__(spmm::ring::NT, 2)
+bsr_spmm_flat_ring(const int* __restrict__ row_ptr,
                    const int* __restrict__ bcols,
                    const __nv_bfloat16* __restrict__ blocks,
-                   const float* __restrict__ V, float* __restrict__ out,
-                   int G, int D) {
+                   const __nv_bfloat16* __restrict__ Vb, int ldv,
+                   float* __restrict__ out, int G, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int r = blockIdx.y;
-  spmm::wmma_tile_bf16(bcols, blocks, V, out, row_ptr[r], row_ptr[r + 1], G,
-                       D, r, blockIdx.x * spmm::DT);
+  spmm::ring_tile_bf16<N>(bcols, blocks, Vb, ldv, out,
+                          (int64_t)row_ptr[r] * G, (int64_t)row_ptr[r + 1] * G,
+                          G, D, r, blockIdx.x * N, smem);
+}
+
+template <int N>
+int launch_ring(const int* row_ptr, const int* bcols,
+                const __nv_bfloat16* blocks, const __nv_bfloat16* Vb, int ldv,
+                float* out, int Kbr, int G, int D, cudaStream_t st) {
+  const int ndt = (D + N - 1) / N;
+  if (ldv < ndt * N) return (int)cudaErrorInvalidValue;
+  constexpr int smem = spmm::ring::Cfg<N>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      bsr_spmm_flat_ring<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bsr_spmm_flat_ring<N><<<dim3(ndt, Kbr), spmm::ring::NT, smem, st>>>(
+      row_ptr, bcols, blocks, Vb, ldv, out, G, D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// blk_dtype: 0 = float32 blocks, 1 = bfloat16 blocks.  Returns the
-// cudaError_t of the launch (0 = launched).
+// Float32 blocks and float32 V.  Returns the cudaError_t of the launch (0 =
+// launched).
 int bsr_spmm_flat_launch(const void* row_ptr, const void* bcols,
-                         const void* blocks, int blk_dtype, const void* V,
-                         void* out, int Kbr, int G, int D, void* stream) {
+                         const void* blocks, const void* V, void* out,
+                         int Kbr, int G, int D, void* stream) {
   if (Kbr <= 0 || Kbr > 65535 || G <= 0 || D <= 0 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((D + spmm::DT - 1) / spmm::DT, Kbr);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (blk_dtype == 0) {
-    bsr_spmm_flat_f32<<<grid, spmm::Fma<128>::NT, 0, st>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(bcols),
-        static_cast<const float*>(blocks), static_cast<const float*>(V),
-        static_cast<float*>(out), G, D);
-  } else if (blk_dtype == 1) {
-    bsr_spmm_flat_bf16<<<grid, spmm::WMMA_NT, 0, st>>>(
-        static_cast<const int*>(row_ptr), static_cast<const int*>(bcols),
-        static_cast<const __nv_bfloat16*>(blocks), static_cast<const float*>(V),
-        static_cast<float*>(out), G, D);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  bsr_spmm_flat_f32<<<grid, spmm::Fma<128>::NT, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(row_ptr), static_cast<const int*>(bcols),
+      static_cast<const float*>(blocks), static_cast<const float*>(V),
+      static_cast<float*>(out), G, D);
   return (int)cudaGetLastError();
+}
+
+// bfloat16 blocks through the ring tile: Vb [nrows, ldv] bf16, ncols output
+// columns per CTA (8, 16, 32, 48, 64, 96 or 128; ldv >= ceil(D / ncols) *
+// ncols), out [nrows, D] float32.  Returns the cudaError_t of the launch.
+int bsr_spmm_flat_bf16_launch(const void* row_ptr, const void* bcols,
+                              const void* blocks, const void* Vb, int ldv,
+                              void* out, int Kbr, int G, int D, int ncols,
+                              void* stream) {
+  if (Kbr <= 0 || Kbr > 65535 || G <= 0 || D <= 0 || D % 8 != 0 ||
+      ldv % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int* rp = static_cast<const int*>(row_ptr);
+  const int* bc = static_cast<const int*>(bcols);
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(blocks);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(Vb);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (ncols) {
+#define SPMM_CASE(N) \
+  case N:            \
+    return launch_ring<N>(rp, bc, a, v, ldv, o, Kbr, G, D, st);
+    SPMM_RING_COLS(SPMM_CASE)
+#undef SPMM_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,15 +1,16 @@
 // Device code shared by the block-sparse SpMM kernels of the port
-// (bsr_spmm_flat.cu: flat block-CSR; bcsr_spmm_ell.cu: block-ELL).
+// (bsr_spmm_flat.cu: flat block-CSR; bcsr_spmm_ell.cu: block-ELL;
+// bsr_spmm_vres.cu takes wmma_store_tile).
 //
 // One CTA computes one output tile
 //
-//   out[r*BR : (r+1)*BR, d0 : d0+DT] =
-//       sum over steps s in [s0, s1) and slots g in [0, G) of
-//       blocks[s][:, g*BC : (g+1)*BC] @ Vb[bcols[s*G+g]*BC : +BC, d0 : d0+DT]
+//   out[r*BR : (r+1)*BR, d0 : d0+N] =
+//       sum over the row's slots j (step s = j / G, group g = j % G) of
+//       blocks[s][:, g*BC : (g+1)*BC] @ Vb[bcols[j]*BC : +BC, d0 : d0+N]
 //
 // where blocks[s] is a [BR, G*BC] slab (G dense blocks side by side) and Vb
-// is V rounded to the block dtype as it is staged.  A flat block-CSR row owns
-// the consecutive steps row_ptr[r]..row_ptr[r+1]; a block-ELL row stored as
+// is V rounded to the block dtype.  A flat block-CSR row owns the slots of
+// its consecutive steps row_ptr[r]..row_ptr[r+1]; a block-ELL row stored as
 // [BR, maxblk*BC] is exactly one such step with G = maxblk.  The tile stays
 // in registers for the CTA's whole walk and is written once: no atomics, no
 // cross-CTA reduction, deterministic sums.  Element offsets are 64-bit (one
@@ -18,11 +19,14 @@
 // Two tile bodies:
 //   * fma_tile<BR, T>: CUDA-core fp32 FMA, any block dtype T (float or
 //     bfloat16; bf16 x bf16-rounded products are exact in fp32), BR = 128 or
-//     8.  Float32 blocks keep full float32 precision (no TF32).
-//   * wmma_tile_bf16: bfloat16 128-row blocks on the tensor cores (WMMA
-//     m16n16k16, fp32 accumulate).
-// Each [BR, 32] slice of a block and the matching [32, 64] slice of V go
-// through shared memory once per pass, loaded with coalesced reads.
+//     8, N = DT = 64 columns.  Float32 blocks keep full float32 precision
+//     (no TF32).  Each [BR, 32] slice of a block and the matching [32, 64]
+//     slice of V go through shared memory once per pass; every slot is
+//     walked, padding included.
+//   * ring_tile_bf16<N>: bfloat16 128-row blocks on the tensor cores
+//     (mma.sync m16n8k16, fp32 sums), all of D up to 128 in one CTA, padding
+//     slots skipped, V pre-rounded, blocks streamed through a cp.async ring
+//     (design notes at its definition below).
 
 #pragma once
 
@@ -131,17 +135,12 @@ __device__ __forceinline__ void fma_tile(const int* __restrict__ bcols,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 128-row blocks on the tensor cores.  256 threads = 8 warps as 4
+// The WMMA epilogue of the V-resident kernel.  256 threads = 8 warps as 4
 // (rows) x 2 (cols); warp (wr, wc) owns rows wr*32..+32 and columns
 // wc*32..+32 as 2x2 fragments of 16x16.
 // ---------------------------------------------------------------------------
 constexpr int WMMA_NT = 256;
-constexpr int LDA = KC + 8;   // bf16 elements; rows stay 16-byte aligned
-constexpr int LDB = DT + 8;
 constexpr int LDC = DT + 4;   // float elements
-constexpr int AB_BYTES = (128 * LDA + KC * LDB) * 2;
-constexpr int C_BYTES = 128 * LDC * 4;
-constexpr int WMMA_SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
 
 // Writes a [128, DT] float tile held as 2x2 WMMA accumulators per warp to
 // out (row block r, columns d0..), through shared memory Cs [128][LDC] so the
@@ -173,78 +172,261 @@ __device__ __forceinline__ void wmma_store_tile(
   }
 }
 
-__device__ __forceinline__ void wmma_tile_bf16(
-    const int* __restrict__ bcols, const __nv_bfloat16* __restrict__ blocks,
-    const float* __restrict__ V, float* __restrict__ out, int s0, int s1,
-    int G, int D, int64_t r, int d0) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ __align__(128) unsigned char smem[WMMA_SMEM_BYTES];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);   // [128][LDA]
-  __nv_bfloat16* Bs = As + 128 * LDA;                           // [KC][LDB]
+// ---------------------------------------------------------------------------
+// bfloat16 128-row blocks on the tensor cores, streamed through a cp.async
+// ring (ring_tile_bf16).
+//
+// One CTA owns the output tile out[r*128 : +128, d0 : d0+N] (N = all of D up
+// to 128) and walks its row's slots j in [j0, j1) in order.  Slot j is
+// step s = j / G, group g = j % G: its block is
+// blocks[s*128 : +128, g*128 : +128] of a [*, G*128] slab.
+//
+// Padding slots are skipped.  The packers place a row's real blocks first,
+// in ascending column-block order, then pad with column-block 0 and zero
+// values; so a slot after the row's first slot whose column-block is 0
+// holds only zeros, and the CTA neither loads nor multiplies it (the row's
+// first slot is always taken: an empty row's zeros give its zero output).
+//
+// V arrives already rounded to bfloat16 by the wrapper (the same
+// round-to-nearest-even as the plain version), [nrows, ldv] with zero
+// columns past D, and is gathered 16 bytes at a time.
+//
+// The ring: each stage holds one 64-deep slice of a block, A [128, 64] and
+// the matching V rows [64, N], copied with cp.async.cg (16 B, L1 bypassed)
+// by all 256 threads.  Slice k+STAGES-1 is issued before the MMAs on slice
+// k, across the row's slots, so STAGES-1 slices (16 KB of A each) are in
+// flight while the tensor cores work; one barrier per slice.  Shared rows
+// are padded by 16 bytes, so the ldmatrix row addresses of a warp fall in
+// distinct banks.  MMAs are mma.sync m16n8k16 bf16 -> fp32 from ldmatrix
+// (V with .trans); 8 warps tile [128, N] as WM x WN; the sums stay in
+// registers and are stored once, float2 per thread, the D edge masked.
+// ---------------------------------------------------------------------------
+namespace ring {
 
+constexpr int NT = 256;                  // 8 warps
+constexpr int KS = 64;                   // contraction depth of one stage
+constexpr int LDA = KS + 8;              // bf16 pitch of an A stage row (144 B)
+constexpr int A_BYTES = 128 * LDA * 2;   // 18,432
+
+template <int N>
+struct Cfg {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 128, "N: 8..128, step 8");
+  static constexpr int WN = N % 16 == 0 ? 2 : 1;   // warps across columns
+  static constexpr int WM = 8 / WN;                // warps across rows
+  static constexpr int MT = 128 / WM / 16;         // m16 tiles per warp
+  static constexpr int NTL = N / WN / 8;           // n8 tiles per warp
+  static constexpr int LDV = N + 8;                // bf16 pitch of a V row
+  static constexpr int V_BYTES = KS * LDV * 2;
+  static constexpr int STAGE = A_BYTES + V_BYTES;
+  // Two CTAs fit on an SM at every N (at most 110,592 bytes each).
+  // SPMM_RING_STAGES overrides the depth (experiments/bench_ring_parts.py).
+#ifdef SPMM_RING_STAGES
+  static constexpr int STAGES = SPMM_RING_STAGES;
+#else
+  static constexpr int STAGES = N <= 64 ? 4 : 3;
+#endif
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  static constexpr int SMEM = STAGES * STAGE;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c += a @ b on one m16n8k16 tile, bf16 inputs, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The slot after j that holds a real block (j1 if none): a slot after the
+// row's first whose column-block is 0 is padding.
+__device__ __forceinline__ int64_t next_real(const int* __restrict__ bcols,
+                                             int64_t j, int64_t j1) {
+  do {
+    ++j;
+  } while (j < j1 && __ldg(bcols + j) == 0);
+  return j;
+}
+
+// Issue the cp.async copies of slice `half` of slot j into ring stage `st`.
+template <int N>
+__device__ __forceinline__ void issue(uint32_t st, const int* __restrict__ bcols,
+                                      const __nv_bfloat16* __restrict__ blocks,
+                                      const __nv_bfloat16* __restrict__ Vb,
+                                      int ldv, int64_t j, int half, int G,
+                                      int d0) {
+  using C = Cfg<N>;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 2, wc = warp % 2;
+  const int64_t s = j / G;
   const int64_t ld = (int64_t)G * BC;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+  const __nv_bfloat16* a =
+      blocks + s * 128 * ld + (j - s * G) * BC + half * KS;
+  // A slice [128, 64]: 1,024 pieces of 16 bytes, 4 per thread.
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int e = 0; e < 128 * KS / 8 / NT; ++e) {
+    const int idx = e * NT + tid;
+    const int i = idx / (KS / 8), c = idx % (KS / 8);
+    cp_async16(st + (i * LDA + c * 8) * 2, a + i * ld + c * 8);
+  }
+  // V rows [64, N] of the slot's column-block.
+  const __nv_bfloat16* v =
+      Vb + ((int64_t)__ldg(bcols + j) * BC + half * KS) * ldv + d0;
+  const uint32_t vs = st + A_BYTES;
+  constexpr int PIECES = KS * N / 8;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-
-  for (int s = s0; s < s1; ++s) {
-    const __nv_bfloat16* slab = blocks + (int64_t)s * 128 * ld;
-    for (int g = 0; g < G; ++g) {
-      const int64_t vrow0 = (int64_t)bcols[(int64_t)s * G + g] * BC;
-      for (int k0 = 0; k0 < BC; k0 += KC) {
-        // A slice [128, 32] bf16: 512 vectors of 8 values, 2 per thread.
-#pragma unroll
-        for (int e = 0; e < (128 * KC / 8) / WMMA_NT; ++e) {
-          const int idx = e * WMMA_NT + tid;
-          const int i = idx / (KC / 8), kv = idx % (KC / 8);
-          *reinterpret_cast<uint4*>(&As[i * LDA + kv * 8]) =
-              *reinterpret_cast<const uint4*>(
-                  &slab[(int64_t)i * ld + g * BC + k0 + kv * 8]);
-        }
-        // V slice [32, 64] float32 -> bf16: 512 float4, 2 per thread.
-#pragma unroll
-        for (int e = 0; e < (KC * DT / 4) / WMMA_NT; ++e) {
-          const int idx = e * WMMA_NT + tid;
-          const int kk = idx / (DT / 4), j = (idx % (DT / 4)) * 4;
-          const int d = d0 + j;
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (d < D)
-            v = *reinterpret_cast<const float4*>(&V[(vrow0 + k0 + kk) * D + d]);
-          __nv_bfloat162* dst =
-              reinterpret_cast<__nv_bfloat162*>(&Bs[kk * LDB + j]);
-          dst[0] = __floats2bfloat162_rn(v.x, v.y);
-          dst[1] = __floats2bfloat162_rn(v.z, v.w);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KC; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> a[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16, LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-        }
-        __syncthreads();
-      }
+  for (int e = 0; e < (PIECES + NT - 1) / NT; ++e) {
+    const int idx = e * NT + tid;
+    if (PIECES % NT == 0 || idx < PIECES) {
+      const int k = idx / (N / 8), c = idx % (N / 8);
+      cp_async16(vs + (k * C::LDV + c * 8) * 2, v + (int64_t)k * ldv + c * 8);
     }
   }
-  // The tile leaves through shared memory, reusing the A/B buffers.
-  wmma_store_tile(c, reinterpret_cast<float*>(smem), out, D, r, d0);
 }
+
+}  // namespace ring
+
+template <int N>
+__device__ __forceinline__ void ring_tile_bf16(
+    const int* __restrict__ bcols, const __nv_bfloat16* __restrict__ blocks,
+    const __nv_bfloat16* __restrict__ Vb, int ldv, float* __restrict__ out,
+    int64_t j0, int64_t j1, int G, int D, int64_t r, int d0,
+    unsigned char* smem) {
+  using C = ring::Cfg<N>;
+  constexpr int S = C::STAGES;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = (warp / C::WN) * C::MT * 16;
+  const int col0 = (warp % C::WN) * C::NTL * 8;
+  // ldmatrix row address of this lane inside a 16x16 tile.
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lc = (lane >> 4) * 8;
+  const uint32_t base = ring::smem_addr(smem);
+
+  float acc[C::MT][C::NTL][4];
+#pragma unroll
+  for (int m = 0; m < C::MT; ++m)
+#pragma unroll
+    for (int n = 0; n < C::NTL; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  // Producer cursor (slot jp, slice hp); every thread walks it alike.
+  int64_t jp = j0;
+  int hp = 0;
+  int issued = 0;
+  auto produce = [&](int stage) {
+    if (jp < j1) {
+      ring::issue<N>(base + stage * C::STAGE, bcols, blocks, Vb, ldv, jp, hp,
+                     G, d0);
+      ++issued;
+      if (hp == 0) {
+        hp = 1;
+      } else {
+        hp = 0;
+        jp = ring::next_real(bcols, jp, j1);
+      }
+    }
+    ring::cp_async_commit();   // possibly empty: keeps the group count fixed
+  };
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) produce(st);
+
+  for (int t = 0; t < issued; ++t) {
+    ring::cp_async_wait<S - 2>();   // slice t has landed (this thread's part)
+    __syncthreads();                // ... everyone's; stage t-1 is free
+    produce((t + S - 1) % S);
+    const uint32_t as = base + (t % S) * C::STAGE;
+    const uint32_t vs = as + ring::A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < ring::KS; kk += 16) {
+      uint32_t af[C::MT][4];
+#pragma unroll
+      for (int m = 0; m < C::MT; ++m)
+        ring::ldsm_x4(af[m],
+                      as + ((row0 + m * 16 + lr) * ring::LDA + kk + lc) * 2);
+      uint32_t bf[C::NTL][2];
+#pragma unroll
+      for (int n = 0; n + 1 < C::NTL; n += 2) {
+        uint32_t b4[4];
+        ring::ldsm_x4_t(b4,
+                        vs + ((kk + lr) * C::LDV + col0 + n * 8 + lc) * 2);
+        bf[n][0] = b4[0];
+        bf[n][1] = b4[1];
+        bf[n + 1][0] = b4[2];
+        bf[n + 1][1] = b4[3];
+      }
+      if (C::NTL % 2) {
+        uint32_t b2[2];
+        ring::ldsm_x2_t(
+            b2, vs + ((kk + lr) * C::LDV + col0 + (C::NTL - 1) * 8) * 2);
+        bf[C::NTL - 1][0] = b2[0];
+        bf[C::NTL - 1][1] = b2[1];
+      }
+#pragma unroll
+      for (int m = 0; m < C::MT; ++m)
+#pragma unroll
+        for (int n = 0; n < C::NTL; ++n)
+          ring::mma_bf16(acc[m][n], af[m], bf[n][0], bf[n][1]);
+    }
+  }
+
+  // Accumulator (m, n): rows lane/4 and lane/4 + 8, columns 2*(lane%4) + 0, 1.
+  const int gr = lane / 4, gc = (lane % 4) * 2;
+#pragma unroll
+  for (int m = 0; m < C::MT; ++m)
+#pragma unroll
+    for (int n = 0; n < C::NTL; ++n) {
+      const int d = d0 + col0 + n * 8 + gc;
+      if (d < D) {   // D even: columns d and d+1 are both in
+        const int64_t row = r * 128 + row0 + m * 16 + gr;
+        *reinterpret_cast<float2*>(&out[row * D + d]) =
+            make_float2(acc[m][n][0], acc[m][n][1]);
+        *reinterpret_cast<float2*>(&out[(row + 8) * D + d]) =
+            make_float2(acc[m][n][2], acc[m][n][3]);
+      }
+    }
+}
+
+// Output columns one bf16 CTA may cover (the instantiated N).
+#define SPMM_RING_COLS(X) X(8) X(16) X(32) X(48) X(64) X(96) X(128)
 
 }  // namespace spmm
