@@ -21,19 +21,25 @@
      at D=48; on the 100k association operator Q (bf16, D=128); and on the
      K=1,009,200 S̃ and Q of the million-link path (bf16, D=48) against the
      plain version at row_chunk=2048;
-   * V-resident flat (bsr_spmm_vres) through the SpMM bench entry point
-     (sig_sdp_mmw_torch/experiments/bench_flat_spmm.py) at G=8 and G=32,
-     which also runs the ELL and flat kernels on that operand;
-   * the yardstick PyTorch call for the kernels' main-path products
-     (bench_flat_spmm.library_spmm: a BSR tensor of the real blocks @ V,
-     bf16 where PyTorch runs it, else float32), with the device kernels
-     the profiler saw it run.  The port never calls it.
+   * V-resident flat (bsr_spmm_vres) on the same S̃: bf16 at G=8 (D=48
+     and 128) and G=32 (D=48, every row padded to 32 slots), then through
+     the SpMM bench entry point (sig_sdp_mmw_torch/experiments/
+     bench_flat_spmm.py) at G=8 and G=32, which also runs the ELL and flat
+     kernels on that operand;
+   * the yardstick PyTorch call (bench_flat_spmm.library_spmm: a BSR tensor
+     of the real blocks @ V, in the block dtype where PyTorch runs it, else
+     float32), with the device kernels the profiler saw it run, for the
+     main-path products, the float32 cases and the V-resident cases.  The
+     port never calls it.
 3. The 100k path: the block-sparse pipeline of
    sig_sdp_mmw_torch/experiments/e2e_large.py on cell 183 (K=100,467; bf16
    blocks, stored transpose, flat_group=8, nit=150, eta=0.05, 10 rounding
    attempts): rem 0, independent verification, every operand on the card,
    S̃/S̃ᵀ through the flat kernel and Q and the epilogue through the
-   block-ELL kernel.
+   block-ELL kernel.  Then a short solve with the gap log
+   (MMWEll(nit=5, log_gap=True) at Z=16 on that instance's flat operands):
+   its gap Lanczos sends D=1 through the flat kernel, and every gap entry
+   must be finite.
 4. The million-link path: sig_sdp_mmw_torch/experiments/million_link_e2e.py
    at its defaults (cell 580, K=1,009,200: 128x128 bf16 blocks with stored
    transpose, gram_mode="edge", row_chunk=2048, D_pad=48, lanczos_m=8,
@@ -44,9 +50,11 @@
    probes x nit_probe x 3 x lanczos_m block-ELL launches.  Nothing is cut.
 
 Every kernel counts its launches; each path's counts are set to 0 just
-before it runs and read just after.  Exits non-zero, printing no result,
-when there is no CUDA device or any phase fails.  The line before the last
-is the kernels' JSON record, the last ``{"ok": true, "device": {...}}``.
+before it runs and read just after (the V-resident kernel's path is the
+SpMM bench; it must launch 0 times on the 100k and million-link paths,
+as in the JAX package).  Exits non-zero, printing no result, when there
+is no CUDA device or any phase fails.  The line before the last is the
+kernels' JSON record, the last ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -112,6 +120,44 @@ def compare(name, mat, V, kernel, plain, iters=20, library=False):
             f"{rec['library_dtype']}, kernels {rec['library_kernels']}, "
             f"refused {rec['library_refused']}")
     return rec
+
+
+def gap_check(tb, Z=16, nit=5) -> None:
+    """A short MMW solve with the gap log on the 100k flat operands: the gap
+    Lanczos applies S̃ and S̃ᵀ to a [Kp, 1] vector through the flat kernel.
+    Every (UB, LB) entry must be finite, and the gap log must add at least
+    two flat-kernel launches per iteration over the same solve without it
+    (the gap Lanczos sends only D=1)."""
+    import torch
+
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.models.mmw_ell import MMWEll
+
+    t0 = time.time()
+    env = LargeEnv(CELL, RHO, seed=SEED)
+    S, Q, h = env.generate_state_csr()
+    ell = env.generate_ell(device="cuda")
+    alg = MMWEll(nit=nit, eta=ETA, use_bcsr=True, log_gap=True, seed=SEED)
+    alg.prepare(ell, S, Q, h_max=h, block=128, dtype=torch.bfloat16,
+                store_transpose=True, flat_group=GROUP)
+    n0 = tb.bsr_spmm_flat.launches
+    alg.run_with_state(0, Z, ell)
+    gap = alg.last_output.gap_log.cpu()
+    n_gap = tb.bsr_spmm_flat.launches - n0
+    alg.log_gap = False
+    n0 = tb.bsr_spmm_flat.launches
+    alg.run_with_state(0, Z, ell)
+    n_d1 = n_gap - (tb.bsr_spmm_flat.launches - n0)
+    log(f"[3 gap] Z={Z} nit={nit}: (UB, LB) per iteration "
+        f"{[[round(float(x), 4) for x in r] for r in gap]}; flat launches "
+        f"{n_gap}, {n_d1} of them the gap log's (D=1) "
+        f"[{time.time() - t0:.1f}s]")
+    if gap.shape != (nit, 2) or not bool(torch.isfinite(gap).all()):
+        raise AssertionError(f"gap log {list(gap.shape)} is not {nit} finite "
+                             "(UB, LB) pairs")
+    if n_d1 < 2 * nit:
+        raise AssertionError(f"the gap log added {n_d1} flat-kernel launches "
+                             f"in {nit} iterations (want >= {2 * nit})")
 
 
 def main() -> int:
@@ -211,17 +257,32 @@ def main() -> int:
 
     check_flat("S~", St, torch.bfloat16, (32, 48, 64, 128), library=(48, 128),
                split=(128,))
-    check_flat("S~", St, torch.float32, (32, 128))
+    check_flat("S~", St, torch.float32, (32, 128), library=(32, 128))
     # The 100k path's other flat operand, S̃ᵀ: another CSR, with its own
     # count of steps per block-row.
     check_flat("S~T", St.transpose().tocsr(), torch.bfloat16, (128,))
     for dt, dims in ((torch.bfloat16, (48, 128)), (torch.float32, (48,))):
         mat = tb.bcsr_from_csr(St, block=128, dtype=dt, device="cuda")
         for D in dims:
-            check_ell(f"ell S~ {str(dt).split('.')[-1]} D={D}", mat, D)
+            check_ell(f"ell S~ {str(dt).split('.')[-1]} D={D}", mat, D,
+                      library=dt == torch.float32)
         del mat
     check_ell("ell Q bfloat16 D=128", q_operator(tb.bcsr_operands_from_state(
-        S, Q, block=128, dtype=torch.bfloat16, device="cuda")), 128)
+        S, Q, block=128, dtype=torch.bfloat16, device="cuda")), 128,
+        library=True)
+    # Kernel #2 directly: G=32 streams the same real blocks as G=8.
+    for G, dims in ((8, (48, 128)), (32, (48,))):
+        mat = tb.bsr_flat_from_csr(St, block=128, group=G,
+                                   dtype=torch.bfloat16, device="cuda")
+        for D in dims:
+            V = randn(mat.nrows, D)
+            name = f"vres S~ bfloat16 G={G} D={D}"
+            log(f"[2 kernel] {name}: steps={mat.nsteps}x{mat.G}")
+            cases[name] = compare(name, mat, V,
+                                  lambda: tb.bsr_spmm_vres(mat, V),
+                                  lambda: tb.bsr_spmm_flat_reference(mat, V),
+                                  library=G == 8)
+        del mat
     torch.cuda.empty_cache()
 
     # Kernel #2 on its path, the SpMM bench entry point (its vres runs are
@@ -231,7 +292,8 @@ def main() -> int:
     vres_launches = tb.bsr_spmm_vres.launches
     for r in bench["runs"]:
         log(f"[2 bench] {json.dumps(r)}")
-    vres_case = next(r for r in bench["runs"] if r["impl"] == "vres_G8")
+    if not vres_launches:
+        raise AssertionError("the SpMM bench did not launch bsr_spmm_vres")
     torch.cuda.empty_cache()
 
     # The million-link S̃ and Q through the block-ELL kernel, from the
@@ -264,6 +326,7 @@ def main() -> int:
                    device="cuda")
     flat_launches = tb.bsr_spmm_flat.launches
     ell_launches_100k = tb.bcsr_spmm.launches
+    vres_launches_100k = tb.bsr_spmm_vres.launches
     log("[3 e2e] phases_s " + json.dumps(rec["phases_s"]))
     log(f"[3 e2e] K={rec['K']} nnz(S)={rec['nnz_S']} nnz(Q)={rec['nnz_Q']} "
         f"lb={rec['lb']} ub={rec['ub']} probes={rec['n_probes']} "
@@ -279,7 +342,8 @@ def main() -> int:
         f"frac>1e-5={rec['bler_frac_above_1e-5']:.4f}; tail "
         + json.dumps(rec["tail_decomposition"]))
     log(f"[3 e2e] operand devices {rec['operand_devices']}; launches: flat "
-        f"{flat_launches}, block-ELL {ell_launches_100k}")
+        f"{flat_launches}, block-ELL {ell_launches_100k}, V-resident "
+        f"{vres_launches_100k}")
     if rec["remainder"] != 0 or not rec["verified_feasible"]:
         raise AssertionError("100k assignment is not feasible")
     if rec["operand_devices"] != ["cuda"]:
@@ -291,7 +355,12 @@ def main() -> int:
         raise AssertionError(f"only {ell_launches_100k} block-ELL launches "
                              f"for {rec['n_probes']} probes x {NIT} "
                              "iterations")
+    if vres_launches_100k:
+        raise AssertionError("the 100k path launched the V-resident kernel")
     del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap_check(tb)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -300,6 +369,7 @@ def main() -> int:
     reset_launches(tb)
     ml = million_main(cell=MILLION_CELL, skip_bler=True, device="cuda")
     ell_launches = tb.bcsr_spmm.launches
+    vres_launches_1m = tb.bsr_spmm_vres.launches
     cfg = ml["config"]
     log("[4 1M] phases_s " + json.dumps(ml["phases_s"]))
     log(f"[4 1M] K={ml['K']} nnz(S)={ml['nnz_S']} maxblk={ml['bcsr_maxblk']} "
@@ -310,7 +380,8 @@ def main() -> int:
     log(f"[4 1M] verify: feasible={ml['verified_feasible']} "
         f"interf={ml['n_interf_vio']} asso={ml['n_asso_vio']}; operand "
         f"devices {ml['operand_devices']}; launches: block-ELL "
-        f"{ell_launches}, flat {tb.bsr_spmm_flat.launches}; peak device "
+        f"{ell_launches}, flat {tb.bsr_spmm_flat.launches}, V-resident "
+        f"{vres_launches_1m}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if ml["K"] != 1_009_200:
         raise AssertionError(f"million-link K={ml['K']}")
@@ -325,6 +396,9 @@ def main() -> int:
     if ell_launches < need:
         raise AssertionError(f"only {ell_launches} block-ELL launches, "
                              f"need {need}")
+    if vres_launches_1m:
+        raise AssertionError("the million-link path launched the V-resident "
+                             "kernel")
     log(f"[done] {time.time() - t_start:.1f}s")
 
     def entry(name, launches, case, source, library=None):
@@ -343,9 +417,8 @@ def main() -> int:
               "bsr_spmm_flat.cu"),
         entry("bcsr_spmm_ell", ell_launches, cases["ell S~ 1M bfloat16 D=48"],
               "bcsr_spmm_ell.cu"),
-        # The bench's vres product is the flat S̃ bf16 D=48 case's.
-        entry("bsr_spmm_vres", vres_launches, vres_case, "bsr_spmm_vres.cu",
-              cases["flat S~ bfloat16 D=48"]),
+        entry("bsr_spmm_vres", vres_launches,
+              cases["vres S~ bfloat16 G=8 D=48"], "bsr_spmm_vres.cu"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -161,15 +161,15 @@ def library_operand(mat, dtype) -> torch.Tensor:
 
 def library_spmm(mat, V: torch.Tensor, iters: int) -> dict:
     """Time of the yardstick PyTorch call for ``mat @ V``: the BSR tensor of
-    the real blocks times V, in bfloat16 when PyTorch runs that on the
-    card, else in float32; with the dtype used, the kernels the profiler
-    saw, and why a dtype was refused.  ``library_ms`` is None when neither
-    runs."""
+    the real blocks times V, in the block dtype of ``mat`` when PyTorch runs
+    that on the card, else in float32; with the dtype used, the kernels the
+    profiler saw, and why a dtype was refused.  ``library_ms`` is None when
+    none runs."""
     from sig_sdp_mmw_torch.experiments.profile_iteration import profile
 
     rec = {"library_ms": None, "library_dtype": None, "library_kernels": [],
            "library_refused": {}}
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in dict.fromkeys((mat.blocks.dtype, torch.float32)):
         try:
             A = library_operand(mat, dt)
             Vl = V.to(dt)

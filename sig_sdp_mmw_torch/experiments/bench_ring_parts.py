@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 
@@ -60,7 +61,7 @@ def ring_stages(n: int):
 def padding_walked(mat):
     """``mat`` with every padding slot after a row's first pointed at
     column-block 1: the same product, but no slot left to skip."""
-    from sig_sdp_mmw_torch.ops.bcsr import BlockEll, FlatBsr
+    from sig_sdp_mmw_torch.ops.bcsr import BlockEll
 
     pad = ~real_slots(mat)
     if isinstance(mat, BlockEll):
@@ -68,8 +69,7 @@ def padding_walked(mat):
         return BlockEll(bcols=torch.where(pad, 1, mat.bcols).int(),
                         blocks=mat.blocks, nrows=mat.nrows)
     pad[mat.row_ptr[:-1].long() * mat.G] = False
-    return FlatBsr(brows=mat.brows, bcols=torch.where(pad, 1, mat.bcols).int(),
-                   blocks=mat.blocks, row_ptr=mat.row_ptr, nrows=mat.nrows)
+    return dataclasses.replace(mat, bcols=torch.where(pad, 1, mat.bcols).int())
 
 
 def parts(name, mat, D, spmm, split_cols, iters, gen):

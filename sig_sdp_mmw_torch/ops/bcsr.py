@@ -223,7 +223,7 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     if V.device.type != "cuda":
         raise ValueError(f"bcsr_spmm: no kernel for device {V.device}")
     D = V.shape[1] if V.dim() == 2 else 0
-    Vk = F.pad(V, (0, -D % 8)) if D % 8 else V.contiguous()
+    Vk = pad_columns(V)
     why = ell_kernel_unsupported(mat, Vk)
     if why is not None:
         raise ValueError(f"bcsr_spmm: {why}")
@@ -471,8 +471,18 @@ def ring_operand(V: torch.Tensor, tile_cols: Optional[int] = None
     return cols, Vb
 
 
+def pad_columns(V: torch.Tensor) -> torch.Tensor:
+    """V (contiguous) with zero columns appended up to a multiple of 8: the
+    kernels take D a multiple of 8, their wrappers any D (the gap Lanczos
+    sends D=1), and slice the product back."""
+    D = V.shape[1] if V.dim() == 2 else 0
+    return F.pad(V, (0, -D % 8)) if D % 8 else V.contiguous()
+
+
 def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
-    """Why the CUDA kernel cannot take these operands (None if it can)."""
+    """Why the CUDA kernels cannot take these operands (None if they can).
+    The wrappers pad V's columns to a multiple of 8 first
+    (:func:`pad_columns`)."""
     if mat.Br != 128 or mat.Bc != 128:
         return f"blocks must be 128x128, got {mat.Br}x{mat.Bc}"
     if mat.blocks.dtype not in _KERNEL_BLOCK_DTYPES:
@@ -502,6 +512,8 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
                   tile_cols: Optional[int] = None) -> torch.Tensor:
     """``A @ V`` on flat block-CSR.  A CPU tensor goes to the plain version;
     a CUDA tensor launches the kernel on the current stream, or raises.
+    Any D: V's columns are padded with zeros to a multiple of 8 for the
+    kernel (:func:`pad_columns`) and the result is sliced back.
     ``bsr_spmm_flat.launches`` counts kernel launches.
 
     bfloat16 blocks take the tensor-core ring tile, as in :func:`bcsr_spmm`:
@@ -513,68 +525,93 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
         raise ValueError(f"bsr_spmm_flat: no kernel for device {V.device}")
-    why = flat_kernel_unsupported(mat, V)
+    Vk = pad_columns(V)
+    why = flat_kernel_unsupported(mat, Vk)
     if why is not None:
         raise ValueError(f"bsr_spmm_flat: {why}")
     from sig_sdp_mmw_torch.ops.kernels import bsr_spmm_flat_library
 
     lib = bsr_spmm_flat_library()
-    D = V.shape[1]
-    out = torch.empty((mat.nrows, D), dtype=torch.float32, device=V.device)
+    D8 = Vk.shape[1]
+    out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
     with torch.cuda.device(V.device):
         if mat.blocks.dtype == torch.bfloat16:
-            cols, Vb = ring_operand(V, tile_cols)
+            cols, Vb = ring_operand(Vk, tile_cols)
             rc = lib.bsr_spmm_flat_bf16_launch(
                 mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
                 mat.blocks.data_ptr(), Vb.data_ptr(), Vb.shape[1],
-                out.data_ptr(), mat.Kbr, mat.G, D, cols, stream)
+                out.data_ptr(), mat.Kbr, mat.G, D8, cols, stream)
         else:
             rc = lib.bsr_spmm_flat_launch(
                 mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), V.data_ptr(), out.data_ptr(), mat.Kbr,
-                mat.G, D, stream)
+                mat.blocks.data_ptr(), Vk.data_ptr(), out.data_ptr(), mat.Kbr,
+                mat.G, D8, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_flat: launch failed with cudaError {rc}")
     bsr_spmm_flat.launches += 1
-    return out
+    return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
 bsr_spmm_flat.launches = 0
 
 
+def vres_operand(V: torch.Tensor) -> torch.Tensor:
+    """V (D a multiple of 8) rounded to bfloat16 for the V-resident kernel,
+    the plain version's cast: [nrows, ldv] with ldv = D up to 128 (the
+    kernel's loads fill the rest of a tile with zeros) and a multiple of 128
+    above, the columns past D zero."""
+    D = V.shape[1]
+    ldv = D if D <= 128 else -(-D // 128) * 128
+    if ldv == D:
+        return V.to(torch.bfloat16)
+    Vb = torch.zeros((V.shape[0], ldv), dtype=torch.bfloat16, device=V.device)
+    Vb[:, :D] = V
+    return Vb
+
+
 def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     """``A @ V`` on flat block-CSR with V resident in L2 (the Hopper form of
     the TPU kernel's VMEM-resident V, see ``bsr_spmm_vres.cu``).  Same
-    contract and plain version as :func:`bsr_spmm_flat`.  On CUDA, V is
-    cast to the block dtype once here, and that copy is what the kernel
-    keeps in L2; ``bsr_spmm_vres.launches`` counts kernel launches."""
+    contract and plain version as :func:`bsr_spmm_flat`, any D (padded to a
+    multiple of 8 and sliced back).  On CUDA, V is cast to the block dtype
+    once here (:func:`vres_operand` for bfloat16 blocks), and that copy is
+    what the kernel keeps in L2; bfloat16 blocks run on persistent CTAs that
+    take the block-rows in index order from a counter zeroed on the stream
+    before each launch.  ``bsr_spmm_vres.launches`` counts kernel
+    launches."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
         raise ValueError(f"bsr_spmm_vres: no kernel for device {V.device}")
-    why = flat_kernel_unsupported(mat, V)
-    if why is None and mat.blocks.data_ptr() % 32:
-        why = "blocks must be 32-byte aligned"   # tensor-core loads from HBM
+    Vk = pad_columns(V)
+    why = flat_kernel_unsupported(mat, Vk)
     if why is not None:
         raise ValueError(f"bsr_spmm_vres: {why}")
     from sig_sdp_mmw_torch.ops.kernels import bsr_spmm_vres_library
 
     lib = bsr_spmm_vres_library()
-    Vc = V.to(mat.blocks.dtype)
-    out = torch.empty((mat.nrows, V.shape[1]), dtype=torch.float32,
-                      device=V.device)
+    D8 = Vk.shape[1]
+    out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
+    stream = torch.cuda.current_stream(V.device).cuda_stream
     with torch.cuda.device(V.device):
-        rc = lib.bsr_spmm_vres_launch(
-            mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-            mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
-            Vc.data_ptr(), Vc.numel() * Vc.element_size(), out.data_ptr(),
-            mat.Kbr, mat.G, V.shape[1],
-            torch.cuda.current_stream().cuda_stream)
+        if mat.blocks.dtype == torch.bfloat16:
+            Vc = vres_operand(Vk)
+            counter = torch.empty((1,), dtype=torch.int32, device=V.device)
+            rc = lib.bsr_spmm_vres_bf16_launch(
+                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+                mat.blocks.data_ptr(), Vc.data_ptr(), Vc.shape[1],
+                counter.data_ptr(), out.data_ptr(), mat.Kbr, mat.nsteps,
+                mat.G, D8, stream)
+        else:
+            rc = lib.bsr_spmm_vres_launch(
+                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+                mat.blocks.data_ptr(), Vk.data_ptr(), out.data_ptr(), mat.Kbr,
+                mat.G, D8, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_vres: launch failed with cudaError {rc}")
     bsr_spmm_vres.launches += 1
-    return out
+    return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
 bsr_spmm_vres.launches = 0

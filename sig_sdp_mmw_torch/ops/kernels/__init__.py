@@ -13,10 +13,12 @@ start every ``nvcc`` together.
   (``bsr_spmm_vres.cu``).
 
 The first two share their tile code through ``spmm_tile.cuh`` (the
-tensor-core ring tile of bfloat16 blocks, the FMA tile of the rest), and each
-has two entry points: ``*_launch`` for float32 V on the FMA tile and
-``*_bf16_launch`` for 128-row bfloat16 blocks on the ring tile.  A library's
-build hash covers the headers of ``csrc/`` as well as its own source.
+tensor-core ring tile of bfloat16 blocks, the FMA tile of the rest).  Each
+library has two entry points: ``*_launch`` on CUDA-core FMA (float32 V; for
+the V-resident kernel float32 blocks and V) and ``*_bf16_launch`` for
+128-row bfloat16 blocks (the ring tile; for the V-resident kernel a TMA
+ring feeding wgmma).  A library's build hash covers the headers of
+``csrc/`` as well as its own source.
 """
 
 from __future__ import annotations
@@ -101,12 +103,15 @@ def bcsr_spmm_ell_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
-def bsr_spmm_vres_library() -> ctypes.CDLL:
-    lib = load_kernel_library("bsr_spmm_vres")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+def bsr_spmm_vres_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = load_kernel_library("bsr_spmm_vres", defines)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bsr_spmm_vres_launch.restype = i32
-    lib.bsr_spmm_vres_launch.argtypes = [vp, vp, vp, i32, vp, i64, vp, i32,
-                                         i32, i32, vp]
+    lib.bsr_spmm_vres_launch.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                         vp]
+    lib.bsr_spmm_vres_bf16_launch.restype = i32
+    lib.bsr_spmm_vres_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, vp,
+                                              i32, i32, i32, i32, vp]
     return lib
 
 

@@ -1,6 +1,6 @@
 // Device code shared by the block-sparse SpMM kernels of the port
 // (bsr_spmm_flat.cu: flat block-CSR; bcsr_spmm_ell.cu: block-ELL;
-// bsr_spmm_vres.cu takes wmma_store_tile).
+// bsr_spmm_vres.cu takes the block constants).
 //
 // One CTA computes one output tile
 //
@@ -32,7 +32,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace spmm {
@@ -131,44 +130,6 @@ __device__ __forceinline__ void fma_tile(const int* __restrict__ bcols,
       *reinterpret_cast<float4*>(&out[row * D + dc]) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The WMMA epilogue of the V-resident kernel.  256 threads = 8 warps as 4
-// (rows) x 2 (cols); warp (wr, wc) owns rows wr*32..+32 and columns
-// wc*32..+32 as 2x2 fragments of 16x16.
-// ---------------------------------------------------------------------------
-constexpr int WMMA_NT = 256;
-constexpr int LDC = DT + 4;   // float elements
-
-// Writes a [128, DT] float tile held as 2x2 WMMA accumulators per warp to
-// out (row block r, columns d0..), through shared memory Cs [128][LDC] so the
-// ragged D edge is masked per 4 columns.  Cs may alias the caller's staging
-// buffers: this starts with a barrier.
-__device__ __forceinline__ void wmma_store_tile(
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (&c)[2][2],
-    float* Cs, float* __restrict__ out, int D, int64_t r, int d0) {
-  namespace wmma = nvcuda::wmma;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 2, wc = warp % 2;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16,
-                              c[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int e = 0; e < (128 * DT / 4) / WMMA_NT; ++e) {
-    const int idx = e * WMMA_NT + tid;
-    const int i = idx / (DT / 4), j = (idx % (DT / 4)) * 4;
-    const int d = d0 + j;
-    if (d < D)
-      *reinterpret_cast<float4*>(&out[(r * 128 + i) * D + d]) =
-          *reinterpret_cast<const float4*>(&Cs[i * LDC + j]);
   }
 }
 

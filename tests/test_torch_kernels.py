@@ -8,6 +8,8 @@ machine without it (the suite's conftest imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse
@@ -15,6 +17,7 @@ import torch
 
 from sig_sdp_mmw_torch.core.ell import build_st_csr
 from sig_sdp_mmw_torch.env.large import generate_large_state_csr
+from sig_sdp_mmw_torch.experiments.bench_vres_parts import longest_first
 from sig_sdp_mmw_torch.ops import bcsr as tb
 
 
@@ -42,6 +45,9 @@ def test_flat_kernel_refuses_what_it_cannot_take(rand512):
         sq, torch.zeros((32, 512)).T)
     assert "V must be [512, D]" in tb.flat_kernel_unsupported(
         sq, torch.zeros((384, 32)))
+    long_bcols = dataclasses.replace(sq, bcols=sq.bcols.long())
+    assert "bcols must be torch.int32" in tb.flat_kernel_unsupported(
+        long_bcols, V)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tb.bsr_spmm_flat(sq, torch.zeros((512, 32), device="meta"))
     with pytest.raises(ValueError, match="sorted by block-row"):
@@ -54,10 +60,11 @@ def test_flat_kernel_refuses_what_it_cannot_take(rand512):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [32, 40, 48, 64, 128])
+@pytest.mark.parametrize("D", [1, 20, 32, 40, 48, 64, 128])
 def test_flat_kernel_matches_reference_on_cuda(D, dt):
     """The CUDA kernel vs its plain version on the card: the same rounded
-    products summed in float32 in another order, to 1e-5 of max|out|."""
+    products summed in float32 in another order, to 1e-5 of max|out|; D=1
+    (the gap Lanczos) and D=20 through the zero-padded columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     S, Q, _ = generate_large_state_csr(10, 75e-4, seed=2)
@@ -67,7 +74,7 @@ def test_flat_kernel_matches_reference_on_cuda(D, dt):
                     generator=torch.Generator("cuda").manual_seed(0))
     n0 = tb.bsr_spmm_flat.launches
     got = tb.bsr_spmm_flat(mat, V)
-    assert tb.bsr_spmm_flat.launches == n0 + 1
+    assert tb.bsr_spmm_flat.launches == n0 + 1 and got.shape == (mat.nrows, D)
     want = tb.bsr_spmm_flat_reference(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
@@ -136,23 +143,92 @@ def test_ell_kernel_matches_reference_on_cuda(D, brow, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [4, 8, 16, 32])
-def test_vres_kernel_matches_reference_on_cuda(G, dt):
-    """The V-resident flat kernel vs the flat plain version on the card,
-    at every group the bench runs (G=16, 32 stage V in chunks).  To 1e-5 of
-    max|out|."""
+@pytest.mark.parametrize("D", [1, 8, 20, 48, 128, 200])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 16, 32])
+def test_vres_kernel_matches_reference_on_cuda(G, D, dt):
+    """The V-resident flat kernel vs the flat plain version on the card, at
+    groups from 1 to 32 (G=32 pads every row to 32 slots) and D from 1 to
+    200 (the bf16 kernel's tile widths 16, 32, 64 and 128; D=200 as two
+    128-column tiles, the second part-full), to 1e-5 of max|out|; two
+    launches bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     S, Q, _ = generate_large_state_csr(10, 75e-4, seed=2)
     mat = tb.bsr_flat_from_csr(build_st_csr(S, Q), block=128, group=G,
                                dtype=getattr(torch, dt), device="cuda")
-    V = torch.randn((mat.nrows, 48), device="cuda",
+    V = torch.randn((mat.nrows, D), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(0))
     n0 = tb.bsr_spmm_vres.launches
     got = tb.bsr_spmm_vres(mat, V)
-    assert tb.bsr_spmm_vres.launches == n0 + 1
+    assert torch.equal(got, tb.bsr_spmm_vres(mat, V))
+    assert tb.bsr_spmm_vres.launches == n0 + 2 and got.shape == (mat.nrows, D)
     want = tb.bsr_spmm_flat_reference(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("D", [1, 20])
+def test_flat_wrappers_pad_any_D(rand512, D):
+    """The flat and V-resident wrappers take any D: the kernels' checks
+    refuse D=1 and D=20 as they are and accept them padded with zero columns
+    to a multiple of 8; the bf16 V copy of the V-resident kernel is the
+    plain version's cast of the padded V.  The CPU path keeps D."""
+    mat = tb.bsr_flat_from_csr(rand512, block=128, group=4)
+    V = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (512, D)).astype(np.float32))
+    assert "multiple of 8" in tb.flat_kernel_unsupported(mat, V)
+    Vk = tb.pad_columns(V)
+    assert Vk.shape == (512, -(-D // 8) * 8) and Vk.is_contiguous()
+    assert torch.equal(Vk[:, :D], V) and not Vk[:, D:].any()
+    assert tb.flat_kernel_unsupported(mat, Vk) is None
+    assert torch.equal(tb.vres_operand(Vk), Vk.to(torch.bfloat16))
+    for fn in (tb.bsr_spmm_flat, tb.bsr_spmm_vres):
+        assert fn(mat, V).shape == (512, D)
+
+
+def test_vres_operand_widths():
+    """The V-resident kernel's bf16 V: D columns up to 128 (the kernel's
+    loads fill a tile's rest with zeros), a multiple of 128 above, zeros
+    past D."""
+    rng = np.random.default_rng(0)
+    for D, ldv in ((8, 8), (48, 48), (128, 128), (136, 256), (256, 256)):
+        V = torch.from_numpy(rng.standard_normal((16, D)).astype(np.float32))
+        Vb = tb.vres_operand(V)
+        assert Vb.shape == (16, ldv) and Vb.dtype == torch.bfloat16
+        assert torch.equal(Vb[:, :D], V.to(torch.bfloat16))
+        assert not Vb[:, D:].any()
+
+
+def _real_blocks_per_row(M, Kbr):
+    """Distinct column-blocks of each block-row's entries (0 for an empty
+    row)."""
+    coo = M.tocoo()
+    pairs = np.unique((coo.row // 128).astype(np.int64) * Kbr
+                      + coo.col // 128)
+    return np.bincount(pairs // Kbr, minlength=Kbr)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8, 32])
+@pytest.mark.parametrize("which", ["edge", "banded"])
+def test_longest_first_renumbers_block_rows(which, G):
+    """The V-resident parts bench's longest-first operand: its block-rows
+    are a permutation of the operand's, their real-block counts (counted
+    here from the CSR) non-increasing, ties in index order, and its product
+    is the operand's with the output row-blocks permuted."""
+    M = _edge_operand() if which == "edge" else _banded_operand(40)
+    mat = tb.bsr_flat_from_csr(M, block=128, group=G)
+    sorted_mat, perm = longest_first(mat)
+    perm = perm.numpy()
+    assert np.array_equal(np.sort(perm), np.arange(mat.Kbr))
+    c = _real_blocks_per_row(M, mat.Kbr)[perm]
+    assert np.all(np.diff(c) <= 0)
+    assert all(np.all(np.diff(perm[c == k]) > 0) for k in np.unique(c))
+    assert (sorted_mat.nsteps, sorted_mat.G) == (mat.nsteps, G)
+    V = torch.from_numpy(np.random.default_rng(G).standard_normal(
+        (mat.nrows, 8)).astype(np.float32))
+    want = tb.bsr_spmm_flat_reference(mat, V).reshape(mat.Kbr, 128, 8)[perm]
+    got = tb.bsr_spmm_flat_reference(sorted_mat, V).reshape(mat.Kbr, 128, 8)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_ring_operand_rounds_like_the_plain_version():
@@ -189,6 +265,26 @@ def _edge_operand():
                                    shape=(640, 640))
 
 
+def _banded_operand(Kbr, seed=4):
+    """K = 128*Kbr, banded: block-row r holds column-blocks r-1, r, r+1 and
+    one more within 8, except row 0, which holds column-blocks 0..11 (its
+    first real block is column-block 0, and it is longer than any ring of
+    the V-resident kernel), and row 1, which is empty."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for br in range(Kbr):
+        if br == 1:
+            continue
+        bcs = (range(12) if br == 0 else
+               {c % Kbr for c in (br - 1, br, br + 1, br + rng.integers(2, 9))})
+        for bc in bcs:
+            rows.append(br * 128 + rng.integers(0, 128, 40))
+            cols.append(bc * 128 + rng.integers(0, 128, 40))
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    return scipy.sparse.csr_matrix((rng.standard_normal(r.size), (r, c)),
+                                   shape=(128 * Kbr, 128 * Kbr))
+
+
 def _edge_case(kind, dt):
     M = _edge_operand()
     if kind == "ell":
@@ -196,17 +292,20 @@ def _edge_case(kind, dt):
         assert mat.bcols.shape[1] == 4
         return mat, tb.bcsr_spmm, tb.bcsr_spmm_reference
     mat = tb.bsr_flat_from_csr(M, block=128, group=4, dtype=dt, device="cuda")
-    return mat, tb.bsr_spmm_flat, tb.bsr_spmm_flat_reference
+    kernel = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
+    return mat, kernel, tb.bsr_spmm_flat_reference
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["ell", "flat"])
+@pytest.mark.parametrize("kind", ["ell", "flat", "vres"])
 @pytest.mark.parametrize("D", [8, 48, 128])
 def test_kernels_on_edge_rows_on_cuda(D, kind, dt):
     """An empty block-row (zero output), a row whose first real block is
-    column-block 0 and a row with no padding, through both kernels, against
-    the plain version (which multiplies every slot) to 1e-5 of max|out|."""
+    column-block 0 and a row with no padding, through the three kernels
+    (5 block-rows: fewer than the V-resident kernel's persistent CTAs),
+    against the plain version (which multiplies every slot) to 1e-5 of
+    max|out|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mat, kernel, plain = _edge_case(kind, getattr(torch, dt))
@@ -244,3 +343,27 @@ def test_bf16_tile_is_deterministic_on_cuda(D, kind):
     want = (tb.bcsr_spmm_reference(mat, V) if kind == "ell"
             else tb.bsr_spmm_flat_reference(mat, V))
     assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [20, 128])
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("Kbr", [20, 300])
+def test_vres_kernel_on_long_and_many_rows_on_cuda(Kbr, G, D, dt):
+    """The V-resident kernel on a banded operand with a row of 12 real
+    blocks (longer than the ring, its first at column-block 0) and an empty
+    row, with fewer (20) and more (300) block-rows than persistent CTAs:
+    against the plain version to 1e-5 of max|out|, two launches bitwise
+    equal, the empty row zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mat = tb.bsr_flat_from_csr(_banded_operand(Kbr), block=128, group=G,
+                               dtype=getattr(torch, dt), device="cuda")
+    V = torch.randn((mat.nrows, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    got = tb.bsr_spmm_vres(mat, V)
+    assert torch.equal(got, tb.bsr_spmm_vres(mat, V))
+    assert not got[128:256].any()
+    want = tb.bsr_spmm_flat_reference(mat, V)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -49,13 +49,16 @@ def test_ell_reference_matches_tpu_kernel(rand512, block, dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("group", [4, 8])
-def test_flat_reference_matches_tpu_vres_kernel(rand512, group, dt):
+@pytest.mark.parametrize("group,D", [
+    pytest.param(g, D, id=str(g) if D == 40 else f"{g}-D{D}")
+    for g in (4, 8, 32) for D in (40, 1, 20)])
+def test_flat_reference_matches_tpu_vres_kernel(rand512, group, D, dt):
     """bsr_spmm_flat_reference (and bsr_spmm_vres on a CPU tensor), the
     plain version of the V-resident kernel, vs bsr_spmm_pallas_vres in
-    interpret mode."""
+    interpret mode, at K=512: G up to 32 (every row padded to 32 slots) and
+    D=1 (the gap Lanczos), 20 and 40."""
     jd, td = _DT[dt]
-    V = np.random.default_rng(1).standard_normal((512, 40)).astype(
+    V = np.random.default_rng(1).standard_normal((512, D)).astype(
         np.float32)
     j = jb.bsr_flat_from_csr(rand512, block=128, group=group,
                              dtype=np.dtype(jd))
