@@ -48,12 +48,26 @@
    without BLER: K, rem 0, verification, Z_fin within 1 of the JAX
    record's 20 (MILLION_LINK_E2E.json), cuda placement, and at least
    probes x nit_probe x 3 x lanczos_m block-ELL launches.  Nothing is cut.
+5. The dense journal-scale path (sig_sdp_mmw_torch/models/mmw.py, plain
+   torch products, TF32 off), on the K=300 reference geometry
+   (tests/fixtures/env_mid.npz: cell 10, rho 0.0075, seed 3, pad_to=320):
+   (a) bench.py's solve, mmw_solve at Z=12, nit=150, eta=0.05, D_pad =
+   rank_pad = 32, one warm-up and 5 timed calls (median it/s and ms per
+   iteration), every tensor on cuda and ub_final finite; (b) the drive
+   recipe, BinarySearchRelaxation with MMW(nit=100, eta=0.05, seed=0):
+   rem 0, verified, Z_fin within 1 of the JAX package's (DENSE_Z_REF),
+   BLER mean and share above 1e-5, all users in one slot at BLER >= 0.99,
+   solve and rounding seconds per probe; (c) the entry point
+   experiments/sim_mmw_time.py at cells 10 and 15 (K=675), every CSV
+   written with finite times, and a search at cell 15 with MMW(nit=150,
+   eta=0.04): rem 0, verified; (d) the SpMM kernels launched 0 times.
 
 Every kernel counts its launches; each path's counts are set to 0 just
 before it runs and read just after (the V-resident kernel's path is the
 SpMM bench; it must launch 0 times on the 100k and million-link paths,
-as in the JAX package).  Exits non-zero, printing no result, when there
-is no CUDA device or any phase fails.  The line before the last is the
+and no kernel may launch on the dense path, as in the JAX package).
+Exits non-zero, printing no result, when there is no CUDA device or any
+phase fails.  The line before the last is the
 kernels' JSON record, the last ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,12 +76,20 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 CELL, RHO, SEED, NIT, ETA, NATTEMPT, GROUP = 183, 75e-4, 0, 150, 0.05, 10, 8
 MILLION_CELL, MILLION_ROW_CHUNK = 580, 2048
 MILLION_Z_REF = 20   # MILLION_LINK_E2E.json (19 at a larger probe budget)
+# The JAX package's Z_fin on the K=300 reference geometry (tests/fixtures/
+# env_mid.npz: cell 10, rho 0.0075, seed 3, pad_to=320) with
+# BinarySearchRelaxation + MMW(nit=100, eta=0.05, seed=0), on the CPU, in
+# float32 with and without x64 (probes 33, 20, 13, 10, 12, 11);
+# tests/test_torch_dense_slice.py recomputes it.
+DENSE_Z_REF = 11
+DENSE_NIT = 150
 REPLACES = {"bsr_spmm_flat": "sig_sdp_mmw_tpu/ops/bcsr.py:334",
             "bcsr_spmm_ell": "sig_sdp_mmw_tpu/ops/bcsr.py:183",
             "bsr_spmm_vres": "sig_sdp_mmw_tpu/ops/bcsr.py:397"}
@@ -158,6 +180,141 @@ def gap_check(tb, Z=16, nit=5) -> None:
     if n_d1 < 2 * nit:
         raise AssertionError(f"the gap log added {n_d1} flat-kernel launches "
                              f"in {nit} iterations (want >= {2 * nit})")
+
+
+def dense_phase(tb, out_dir: str) -> dict:
+    """Phase 5, the dense journal-scale path on the card: (a) the bench's
+    solve on the K=300 reference geometry, (b) the drive recipe's search,
+    verification and BLER on that state, (c) sim_mmw_time at cells 10 and
+    15 and a search at cell 15, (d) no SpMM kernel launched."""
+    import numpy as np
+    import torch
+
+    from sig_sdp_mmw_torch.env import WirelessEnv
+    from sig_sdp_mmw_torch.experiments.sim_mmw_time import \
+        main as mmw_time_main
+    from sig_sdp_mmw_torch.models import (MMW, BinarySearchRelaxation,
+                                          verify_assignment)
+    from sig_sdp_mmw_torch.models.mmw import mmw_solve
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fix = np.load(os.path.join(here, "tests", "fixtures", "env_mid.npz"))
+    reset_launches(tb)
+    t_phase = time.time()
+    rec = {}
+
+    # (a) bench.py's K=300 solve: Z=12, nit=150, eta=0.05, D_pad 32.
+    env = WirelessEnv(cell_size=10, sta_density_per_1m2=RHO, seed=3,
+                      pad_to=320, device="cuda", sta_locs=fix["sta_locs"])
+    st = env.generate_S_Q_hmax()
+    if (st.K, st.Kp) != (300, 320) or st.tensor_devices() != {"cuda"}:
+        raise AssertionError(f"dense state K={st.K} Kp={st.Kp} on "
+                             f"{st.tensor_devices()}")
+
+    def solve(i):
+        return mmw_solve(st, 12.0, nit=DENSE_NIT, eta=ETA, D_pad=32,
+                         rank_pad=32, draws=TorchDraws(0, "cuda", stream=i))
+
+    t0 = time.perf_counter()
+    out = solve(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times = []
+    for i in range(1, 6):
+        t0 = time.perf_counter()
+        out = solve(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    rec.update(it_per_s=DENSE_NIT / med, ms_per_it=med / DENSE_NIT * 1e3,
+               solve_s=times, first_solve_s=first_s,
+               ub_final=float(out.ub_final))
+    log(f"[5 dense] K=300 solve (Z=12, nit={DENSE_NIT}, eta={ETA}, D_pad "
+        f"32): {rec['it_per_s']:.2f} it/s, {rec['ms_per_it']:.4f} ms per "
+        f"iteration (median of 5; solves {[round(t, 4) for t in times]} s, "
+        f"first {first_s:.3f} s); ub_final {rec['ub_final']:.4f}")
+    if out.tensor_devices() != {"cuda"} or not np.isfinite(rec["ub_final"]):
+        raise AssertionError(f"dense solve output on {out.tensor_devices()}, "
+                             f"ub_final {rec['ub_final']}")
+
+    # (b) the drive recipe on the same state.
+    bs = BinarySearchRelaxation()
+    bs.feasibility_check_alg = MMW(nit=100, eta=ETA, seed=0)
+    t0 = time.time()
+    z, Z, rem = bs.run(st)
+    search_s = time.time() - t0
+    ok, n_i, n_a = verify_assignment(st, z)
+    probes = bs.LOGGED_NP_DATA["bs_search_per_it"]
+    bler = env.evaluate_bler(z, Z)
+    one_slot = float(env.evaluate_bler(np.zeros(st.K, int), 1).mean())
+    rec.update(Z_fin=int(Z), remainder=int(rem), search_s=search_s,
+               probe_Z=probes[:, 5].astype(int).tolist(),
+               solve_s_per_probe=(probes[:, 8] / 1e6).tolist(),
+               rounding_s_per_probe=(probes[:, 9] / 1e6).tolist(),
+               bler_mean=float(bler.mean()),
+               bler_frac_above_1e5=float((bler > 1e-5).mean()),
+               one_slot_bler=one_slot)
+    log(f"[5 dense] recipe: bounds {bs.set_bounds(st)} probes "
+        f"{rec['probe_Z']} Z_fin={Z} (JAX: {DENSE_Z_REF}) rem={rem} "
+        f"verified={ok} ({n_i}/{n_a}); search {search_s:.3f} s")
+    log(f"[5 dense] solve_s per probe "
+        f"{[round(x, 4) for x in rec['solve_s_per_probe']]}, rounding_s per "
+        f"probe {[round(x, 4) for x in rec['rounding_s_per_probe']]}")
+    log(f"[5 dense] BLER mean {rec['bler_mean']:.4e}, frac>1e-5 "
+        f"{rec['bler_frac_above_1e5']:.4f}; all in one slot {one_slot:.4f}")
+    if rem != 0 or not ok:
+        raise AssertionError("dense K=300 assignment is not feasible")
+    if abs(Z - DENSE_Z_REF) > 1:
+        raise AssertionError(f"dense Z_fin {Z} is not within 1 of "
+                             f"{DENSE_Z_REF}")
+    if one_slot < 0.99:
+        raise AssertionError(f"all-in-one-slot BLER {one_slot} < 0.99")
+
+    # (c) the entry point, then a search at cell 15 (K=675).
+    t0 = time.time()
+    path = mmw_time_main(["--cells", "10", "15", "--repeat", "1", "--out",
+                          out_dir])
+    tag = str(int(RHO * 10000))
+    for cell in (10, 15):
+        for kind, width in (("time", 6), ("fused", 1)):
+            name = f"mmw150-{kind}-{cell}-{tag}"
+            with open(os.path.join(path, name)) as f:
+                row = np.array(f.read().strip().split(",")[2:], float)
+            if row.size != width or not np.all(np.isfinite(row)):
+                raise AssertionError(f"{name}: {row}")
+            rec[name] = row.tolist()
+            log(f"[5 dense] {name}: {[round(float(x), 1) for x in row]} us")
+    log(f"[5 dense] sim_mmw_time cells 10, 15: {time.time() - t0:.1f} s")
+    env15 = WirelessEnv(cell_size=15, sta_density_per_1m2=RHO, seed=0,
+                        device="cuda")
+    st15 = env15.generate_S_Q_hmax()
+    bs15 = BinarySearchRelaxation()
+    bs15.feasibility_check_alg = MMW(nit=DENSE_NIT, eta=0.04, seed=0)
+    t0 = time.time()
+    z15, Z15, rem15 = bs15.run(st15)
+    s15 = time.time() - t0
+    ok15 = verify_assignment(st15, z15)[0]
+    p15 = bs15.LOGGED_NP_DATA["bs_search_per_it"]
+    rec.update(K15=st15.K, Z_fin15=int(Z15), search15_s=s15,
+               rounding15_s_per_probe=(p15[:, 9] / 1e6).tolist())
+    log(f"[5 dense] cell 15: K={st15.K} bounds {bs15.set_bounds(st15)} "
+        f"probes {p15[:, 5].astype(int).tolist()} Z_fin={Z15} rem={rem15} "
+        f"verified={ok15}; search {s15:.3f} s; solve_s per probe "
+        f"{[round(float(x) / 1e6, 4) for x in p15[:, 8]]}, rounding_s per "
+        f"probe {[round(float(x) / 1e6, 4) for x in p15[:, 9]]}")
+    if st15.K != 675 or rem15 != 0 or not ok15:
+        raise AssertionError(f"cell 15 (K={st15.K}): rem {rem15}, "
+                             f"verified {ok15}")
+
+    # (d) the dense path reaches no SpMM kernel.
+    n = (tb.bsr_spmm_flat.launches, tb.bcsr_spmm.launches,
+         tb.bsr_spmm_vres.launches)
+    log(f"[5 dense] launches: flat {n[0]}, block-ELL {n[1]}, V-resident "
+        f"{n[2]} [{time.time() - t_phase:.1f}s]")
+    if any(n):
+        raise AssertionError(f"the dense path launched SpMM kernels {n}")
+    return rec
 
 
 def main() -> int:
@@ -399,6 +556,13 @@ def main() -> int:
     if vres_launches_1m:
         raise AssertionError("the million-link path launched the V-resident "
                              "kernel")
+    del ml
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5. the dense journal-scale path -----------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        dense_phase(tb, os.path.join(tmp, "sim_mmw_time"))
     log(f"[done] {time.time() - t_start:.1f}s")
 
     def entry(name, launches, case, source, library=None):

@@ -1,9 +1,10 @@
-"""Physical-layer model: Polyanskiy finite-blocklength BLER and the
-min-SINR bisection.
+"""Physical-layer model: log-distance path loss, Polyanskiy
+finite-blocklength BLER and the min-SINR bisection.
 
-Port of :mod:`sig_sdp_mmw_tpu.env.phy`: ``polyanskiy_model`` is element-wise
-torch (``torch.special.erfc``); the bisection is a host float computation
-that depends only on static link-budget parameters and is cached.
+Port of :mod:`sig_sdp_mmw_tpu.env.phy`: ``fre_dis_to_loss_db`` and
+``polyanskiy_model`` are element-wise torch (``torch.special.erfc``); the
+bisection is a host float computation that depends only on static
+link-budget parameters and is cached.
 """
 
 from __future__ import annotations
@@ -22,9 +23,19 @@ def db_to_dec(db):
     return 10.0 ** (db / 10.0)
 
 
+def dec_to_db(dec):
+    return 10.0 * math.log10(dec)
+
+
 def noise_dbm(bandwidth_hz) -> float:
     """The reference uses a fixed noise floor."""
     return NOISE_FLOOR_DBM
+
+
+def fre_dis_to_loss_db(fre_hz, dis: torch.Tensor) -> torch.Tensor:
+    """Log-distance path loss (dB) at distances ``dis`` (metres)."""
+    L = 20.0 * math.log10(fre_hz / 1e6) + 16.0 - 28.0
+    return L + 28.0 * torch.log10(dis + 1.0)
 
 
 def polyanskiy_model(snr_dec, L_bits, B_hz, T_s) -> torch.Tensor:

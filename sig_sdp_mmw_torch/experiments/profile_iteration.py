@@ -1,6 +1,6 @@
 """Where an MMW iteration's device time goes, on the card (torch.profiler).
 
-Two configurations, each as its pipeline runs it:
+Four configurations, each as its pipeline runs it:
 
 * ``100k``: cell 183 (K=100,467) as ``experiments/e2e_large.py`` solves
   it: bf16 blocks with stored transpose, S̃/S̃ᵀ through the flat kernel
@@ -10,12 +10,18 @@ Two configurations, each as its pipeline runs it:
 * ``1M``: cell 580 (K=1,009,200) as ``experiments/million_link_e2e.py``
   solves it: the slim state, bf16 block-ELL with stored transpose, edge
   Gram, D_pad 48, lanczos_m 8; one segment of ``nit`` iterations at Z=20
-  after a warm-up segment.
+  after a warm-up segment;
+* ``dense300``: the dense path's K=300 solve as bench.py times it (the
+  reference geometry of ``tests/fixtures/env_mid.npz``, Z=12, nit=150,
+  eta=0.05, D_pad 32), all 150 iterations and the epilogue;
+* ``dense675``: cell 15 (K=675) as ``experiments/sim_mmw_time.py``'s search
+  probes it (Z=16, nit=150, eta=0.04, D_pad from the degree bound).
 
 Each solve runs once unprofiled (kernel builds, allocator), then once under
 the profiler (device activity only).  Reports the wall time, the device
 time summed over kernels and copies (one stream, so their sum over the wall
-time is the device's busy share) and the ``top`` entries by device time.
+time is the device's busy share), the number of kernels and copies, and the
+``top`` entries by device time.
 Needs a CUDA device; writes JSON only to ``out_path``.
 
     python -m sig_sdp_mmw_torch.experiments.profile_iteration --out prof.json
@@ -56,6 +62,7 @@ def profile(fn, top: int = 12) -> dict:
     device_ms = sum(dev_us(e) for e in evs) / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (wall * 1e3),
+            "device_calls": sum(e.count for e in evs),
             "top": [{"name": e.key[:160], "calls": e.count,
                      "ms": dev_us(e) / 1e3} for e in evs[:top]]}
 
@@ -100,17 +107,55 @@ def solve_1m(nit: int):
                                  num_steps=nit, **kw)
 
 
-def main(cells=("100k", "1M"), nit=5, out_path=None):
+def solve_dense(cell_size: int, Z: float, eta: float):
+    """The dense path's whole solve (nit=150, epilogue included), as a
+    probe of the dense search runs it: ``dense300`` is bench.py's solve on
+    the K=300 reference geometry (tests/fixtures/env_mid.npz) at Z=12,
+    eta=0.05, D_pad 32; ``dense675`` the cell-15 search's solve at Z=16,
+    eta=0.04, D_pad from ``MMW._d_pad_for``."""
+    import os
+
+    import numpy as np
+
+    from sig_sdp_mmw_torch.env import WirelessEnv
+    from sig_sdp_mmw_torch.models.mmw import MMW, mmw_solve
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    if cell_size == 10:
+        fix = np.load(os.path.join(os.path.dirname(__file__), "..", "..",
+                                   "tests", "fixtures", "env_mid.npz"))
+        env = WirelessEnv(cell_size=10, sta_density_per_1m2=75e-4, seed=3,
+                          pad_to=320, sta_locs=fix["sta_locs"])
+        D_pad = rank_pad = 32
+    else:
+        env = WirelessEnv(cell_size=cell_size, sta_density_per_1m2=75e-4,
+                          seed=0)
+    st = env.generate_S_Q_hmax()
+    if cell_size != 10:
+        D_pad, rank_pad = MMW(nit=150, eta=eta)._d_pad_for(st, int(Z))
+    return lambda: mmw_solve(st, Z, nit=150, eta=eta, D_pad=D_pad,
+                             rank_pad=rank_pad, draws=TorchDraws(0, "cuda"))
+
+
+CELLS = {"100k": solve_100k, "1M": solve_1m,
+         "dense300": lambda nit: solve_dense(10, 12.0, 0.05),
+         "dense675": lambda nit: solve_dense(15, 16.0, 0.04)}
+
+
+def main(cells=("100k", "1M", "dense300", "dense675"), nit=5,
+         out_path=None):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_iteration measures on a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
     out = {"device": torch.cuda.get_device_name(0), "nit": nit}
     for cell in cells:
-        fn = {"100k": solve_100k, "1M": solve_1m}[cell](nit)
+        fn = CELLS[cell](nit)
         rec = profile(fn)
         out[cell] = rec
-        print(f"[{cell}] {nit} iterations: wall {rec['wall_ms']:.2f} ms, "
-              f"device {rec['device_ms']:.2f} ms, busy "
-              f"{rec['busy_share']:.3f}")
+        its = 150 if cell.startswith("dense") else nit
+        print(f"[{cell}] {its} iterations: wall {rec['wall_ms']:.2f} ms, "
+              f"device {rec['device_ms']:.2f} ms in {rec['device_calls']} "
+              f"kernels and copies, busy {rec['busy_share']:.3f}")
         for e in rec["top"]:
             print(f"[{cell}]   {e['ms']:9.3f} ms  {e['calls']:5d}x  "
                   f"{e['name'][:110]}")
@@ -125,7 +170,8 @@ def main(cells=("100k", "1M"), nit=5, out_path=None):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cells", nargs="+", default=["100k", "1M"])
+    ap.add_argument("--cells", nargs="+",
+                    default=["100k", "1M", "dense300", "dense675"])
     ap.add_argument("--nit", type=int, default=5)
     ap.add_argument("--out", type=str, default=None)
     a = ap.parse_args()

@@ -1,10 +1,101 @@
-"""Dense MMW solver: so far only the Krylov-dimension default that the sparse
-solver shares (port of :func:`sig_sdp_mmw_tpu.models.mmw.mmw_default_lanczos_m`).
-The dense ``mmw_solve`` belongs to the dense slice."""
+"""Dense Matrix-Multiplicative-Weights SDP feasibility solver, in PyTorch.
+
+Port of :mod:`sig_sdp_mmw_tpu.models.mmw` (reference ``sim_src/alg/
+mmw.py``): the ``nit``-iteration dual/loss/primal loop on the dense masked
+state, as a Python loop over tensors on the state's device:
+
+* ``scipy.sparse.linalg.expm_multiply`` -> the fixed-depth batched Lanczos
+  of :func:`sig_sdp_mmw_torch.ops.expm.lanczos_expm_multiply`, each step a
+  [Kp, Kp] @ [Kp, D] product (``torch.matmul``; TF32 stays off), with a
+  global log-scale so the trace-normalized Gibbs state is exact in float32;
+* the sketch width is padded to ``D_pad`` with masked columns;
+* random draws come from a draws object (:mod:`sig_sdp_mmw_torch.utils.
+  draws`) by role: iteration i's sketch, the final factorization's Ω and
+  iteration i's gap start vector;
+* duality-gap telemetry (UB = max averaged violation, LB = K·lambda_min of
+  the averaged loss by Lanczos) into an [nit, 2] tensor.
+
+The loop reads no tensor back to the host, so it never waits for the card
+on purpose (the gap log's small ``eigvalsh`` may).
+
+Constraint system (``sdp_solver.py:153-161``):
+  A_D: diag(X) = 1;  A_F: X_ij <= -1/(Z-1) on associated pairs;
+  A_H: row-sums of S̃∘X bounded by the interference budget.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sig_sdp_mmw_torch.core.preprocess import MMWOperands, build_mmw_operands
+from sig_sdp_mmw_torch.core.problem import SigState
+from sig_sdp_mmw_torch.models.base import SDPSolverBase
+from sig_sdp_mmw_torch.ops.expm import lanczos_expm_multiply
+from sig_sdp_mmw_torch.ops.lanczos import lanczos_extreme_eigs
+from sig_sdp_mmw_torch.ops.rsvd import randomized_symmetric_lowrank
+from sig_sdp_mmw_torch.utils.draws import TorchDraws
+from sig_sdp_mmw_torch.utils.stats import StatsObject
+from sig_sdp_mmw_torch.utils.tensors import TensorFields
+
+
+@dataclasses.dataclass(frozen=True)
+class MMWOutput(TensorFields):
+    X_half: torch.Tensor     # [Kp, rank_pad] final factor (masked beyond rank)
+    ub_final: torch.Tensor   # max violation of the averaged X (scalar)
+    gap_log: torch.Tensor    # [nit, 2] (UB, LB) if log_gap else [0, 2]
+    X_avgd: torch.Tensor     # [Kp, Kp] averaged primal (diag included)
+
+
+def _masked_softmax_3(eD, eF, eH, mD, mF, mH):
+    """Softmax over the concatenation of three masked violation blocks;
+    masked entries get zero weight."""
+    eD = torch.where(mD, eD, -torch.inf)
+    eF = torch.where(mF, eF, -torch.inf)
+    eH = torch.where(mH, eH, -torch.inf)
+    M = torch.maximum(torch.max(eD), torch.maximum(torch.max(eF),
+                                                   torch.max(eH)))
+    xD, xF, xH = torch.exp(eD - M), torch.exp(eF - M), torch.exp(eH - M)
+    den = torch.sum(xD) + torch.sum(xF) + torch.sum(xH)
+    return xD / den, xF / den, xH / den
+
+
+def _violations(X_mdiag, X_offdi, op: MMWOperands, Z, K):
+    """Constraint violations of a primal iterate."""
+    eD = (X_mdiag - 1.0) / (1.0 - 1.0 / K)
+    eF = (X_offdi + 1.0 / (Z - 1.0)) / (1.0 / (K * (Z - 1.0)) + 0.5)
+    AHX = torch.sum(op.St * X_offdi, dim=1)
+    eH = (AHX * (Z - 1.0) / Z - (op.h_max - op.S_sum / Z)) / op.norm_H
+    return eD, eF, eH
+
+
+def _max_violation(eD, eF, eH, op: MMWOperands):
+    """The largest violation over the valid constraints."""
+    return torch.maximum(
+        torch.max(torch.where(op.mask, eD, -torch.inf)),
+        torch.maximum(torch.max(torch.where(op.asso_ut, eF, -torch.inf)),
+                      torch.max(torch.where(op.mask, eH, -torch.inf))))
+
+
+def _loss_matrix(YD, YF, YH, op: MMWOperands, Z, K, Kp):
+    """Dense loss L = LD + LF + LH for a dual weight vector."""
+    ld = (YD - torch.sum(YD) / K) / (1.0 - 1.0 / K)             # LD diagonal
+    YF_m = 0.5 * (YF + YF.T)
+    cF = 1.0 / (0.5 + 1.0 / (K * (Z - 1.0)))
+    lf_diag = torch.sum(YF) / (K * (Z - 1.0)) * cF
+    LF = YF_m * cF
+    coef = YH / op.norm_H
+    Mh = coef[:, None] * op.St
+    LH = (Mh + Mh.T) * (Z - 1.0) / (2.0 * Z)
+    lh_diag = -torch.sum((op.h_max / K - op.S_sum / (K * Z)) * coef)
+    diag = ld + lf_diag + lh_diag * torch.ones((Kp,), dtype=YD.dtype,
+                                               device=YD.device)
+    diag = torch.where(op.mask, diag, 0.0)
+    return LF + LH + torch.diag(diag)
 
 
 def mmw_default_lanczos_m(eta: float, nit: int) -> int:
@@ -16,3 +107,261 @@ def mmw_default_lanczos_m(eta: float, nit: int) -> int:
     Override ``lanczos_m`` explicitly for other (eta, nit) regimes.
     """
     return min(48, max(8, int(math.ceil(8 + 0.6 * math.sqrt(eta * nit)))))
+
+
+def _sketch(draws, i: int, op: MMWOperands, D_pad: int, D_act: int, dtype):
+    """Iteration i's Gaussian sketch: active columns of valid rows, unit
+    rows over the active columns."""
+    Kp = op.mask.shape[0]
+    col_mask = (torch.arange(D_pad, device=op.mask.device) < D_act)[None, :]
+    G = draws.sketch(i, (Kp, D_pad), dtype)
+    G = torch.where(col_mask & op.mask[:, None], G, 0.0)
+    rn = torch.linalg.norm(G, dim=1, keepdim=True)
+    return torch.where(rn > 0, G / torch.where(rn > 0, rn, 1.0), 0.0)
+
+
+def _primal(op: MMWOperands, X_half, K):
+    """(X_mdiag, X_offdi) of the trace-normalized sketch factor."""
+    md = torch.sum(X_half * X_half, dim=1)
+    X_trace = torch.sum(md) / K
+    X_mdiag = torch.where(op.mask, md / X_trace, 0.0)
+    Gram = (X_half @ X_half.T) / X_trace
+    return X_mdiag, torch.where(op.xpat, Gram, 0.0)
+
+
+def _factor(X_avgd, op: MMWOperands, Z: float, K: int, rank_radio: int,
+            rank_pad: int, draws):
+    """X_half = U sqrt(s) of the averaged primal, rank (Z-1)·rank_radio."""
+    rank_act = int(min(K - 1, (Z - 1.0) * rank_radio))
+    U, s = randomized_symmetric_lowrank(X_avgd, rank_pad, draws)
+    keep = (torch.arange(rank_pad, device=U.device) < rank_act)[None, :]
+    X_half = torch.where(keep, U * torch.sqrt(s)[None, :], 0.0)
+    return torch.where(op.mask[:, None], X_half, 0.0)
+
+
+def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
+              rank_radio: int = 2, D_pad: int, rank_pad: int, draws,
+              lanczos_m: Optional[int] = None, log_gap: bool = False,
+              gap_lanczos_m: int = 32) -> MMWOutput:
+    """Run the MMW dual/loss/primal loop for ``Z`` slots on the state's
+    device.  ``draws``: the random draws (``sketch``, ``omega``, ``gap``)."""
+    Kp, K = state.Kp, state.K
+    dtype = state.S.dtype
+    device = state.S.device
+    Zh = float(Z)
+    Zf = torch.tensor(Zh, dtype=dtype, device=device)
+    op = build_mmw_operands(state, Zf)
+    D_act = int(Zh * rank_radio)                 # active sketch columns
+    if lanczos_m is None:
+        lanczos_m = mmw_default_lanczos_m(eta, nit)
+    mD, mF, mH = op.mask, op.asso_ut, op.mask
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    e_accu_D, e_accu_F, e_accu_H = zeros(Kp), zeros(Kp, Kp), zeros(Kp)
+    L_accu = zeros(Kp, Kp)
+    X_mdiag = torch.where(op.mask, 1.0, 0.0).to(dtype)     # X0 = I
+    X_offdi = zeros(Kp, Kp)
+    X_avgd = zeros(Kp, Kp)
+    YaD, YaF, YaH = zeros(Kp), zeros(Kp, Kp), zeros(Kp)
+    gap = zeros(nit if log_gap else 0, 2)
+    # Initial Y: uniform over the valid constraints = softmax of zeros.
+    YD, YF, YH = _masked_softmax_3(zeros(Kp), zeros(Kp, Kp), zeros(Kp),
+                                   mD, mF, mH)
+
+    for i in range(nit):
+        # ---- averaging (pre-update) ---------------------------------------
+        X_avgd = X_avgd + X_offdi + torch.diag(X_mdiag)
+        YaD, YaF, YaH = YaD + YD, YaF + YF, YaH + YH
+        if log_gap:
+            n = float(i + 1)
+            Xa = X_avgd / n
+            dXa = torch.diagonal(Xa)
+            ub = _max_violation(*_violations(dXa, Xa - torch.diag(dXa), op,
+                                             Zf, K), op)
+            L_avg = _loss_matrix(YaD / n, YaF / n, YaH / n, op, Zf, K, Kp)
+            lam_min, _ = lanczos_extreme_eigs(
+                lambda V: L_avg @ V, draws.gap(i, (Kp, 1), dtype),
+                m=gap_lanczos_m)
+            gap[i, 0] = ub
+            gap[i, 1] = lam_min * K
+
+        # ---- dual step ----------------------------------------------------
+        eD, eF, eH = _violations(X_mdiag, X_offdi, op, Zf, K)
+        e_accu_D = e_accu_D + eta * eD
+        e_accu_F = e_accu_F + eta * torch.where(mF, eF, 0.0)
+        e_accu_H = e_accu_H + eta * eH
+        YD, YF, YH = _masked_softmax_3(e_accu_D, e_accu_F, e_accu_H,
+                                       mD, mF, mH)
+
+        # ---- loss accumulation --------------------------------------------
+        L_accu = L_accu - eta * _loss_matrix(YD, YF, YH, op, Zf, K, Kp)
+
+        # ---- primal via sketched expm -------------------------------------
+        G = _sketch(draws, i, op, D_pad, D_act, dtype)
+        X_half, _ = lanczos_expm_multiply(
+            lambda V: 0.5 * (L_accu @ V), G, m=lanczos_m,
+            small_method="taylor_ss", norm_bound=eta * nit)
+        X_mdiag, X_offdi = _primal(op, X_half, K)
+
+    # ---- final averaged primal + factorization ----------------------------
+    X_avgd = X_avgd / nit
+    dXa = torch.diagonal(X_avgd)
+    ub_final = _max_violation(*_violations(dXa, X_avgd - torch.diag(dXa), op,
+                                           Zf, K), op)
+    X_half = _factor(X_avgd, op, Zh, K, rank_radio, rank_pad, draws)
+    return MMWOutput(X_half=X_half, ub_final=ub_final, gap_log=gap,
+                     X_avgd=X_avgd)
+
+
+def make_mmw_phase_fns(*, nit: int, eta: float, rank_radio: int, D_pad: int,
+                       lanczos_m: Optional[int] = None):
+    """Per-phase step functions for profiled runs, bracketing the
+    reference's phases (``mmw.py:124-197``: "mmw_dual", "mmw_loss",
+    "mmw_expm").  :func:`mmw_solve` is the fast path; these trade its
+    unbroken queue of launches for a synchronized time per phase."""
+    if lanczos_m is None:
+        lanczos_m = mmw_default_lanczos_m(eta, nit)
+
+    def state_process(state: SigState, Z) -> MMWOperands:
+        return build_mmw_operands(state, Z)
+
+    def dual_step(op: MMWOperands, Z, X_mdiag, X_offdi, e_accu_D, e_accu_F,
+                  e_accu_H):
+        Zf = torch.as_tensor(Z, dtype=op.St.dtype, device=op.St.device)
+        eD, eF, eH = _violations(X_mdiag, X_offdi, op, Zf, op.K)
+        e_accu_D = e_accu_D + eta * eD
+        e_accu_F = e_accu_F + eta * torch.where(op.asso_ut, eF, 0.0)
+        e_accu_H = e_accu_H + eta * eH
+        YD, YF, YH = _masked_softmax_3(e_accu_D, e_accu_F, e_accu_H,
+                                       op.mask, op.asso_ut, op.mask)
+        return e_accu_D, e_accu_F, e_accu_H, YD, YF, YH
+
+    def loss_step(op: MMWOperands, Z, L_accu, YD, YF, YH):
+        Zf = torch.as_tensor(Z, dtype=op.St.dtype, device=op.St.device)
+        return L_accu - eta * _loss_matrix(YD, YF, YH, op, Zf, op.K,
+                                           op.St.shape[-1])
+
+    def expm_step(op: MMWOperands, Z, L_accu, draws, i: int):
+        G = _sketch(draws, i, op, D_pad, int(float(Z) * rank_radio),
+                    op.St.dtype)
+        X_half, _ = lanczos_expm_multiply(
+            lambda V: 0.5 * (L_accu @ V), G, m=lanczos_m,
+            small_method="taylor_ss", norm_bound=eta * nit)
+        return _primal(op, X_half, op.K)
+
+    return state_process, dual_step, loss_step, expm_step
+
+
+class MMW(StatsObject, SDPSolverBase):
+    """Reference-compatible solver object (``mmw.py:12-24``) around
+    :func:`mmw_solve`, pluggable into :class:`sig_sdp_mmw_torch.models.
+    search.BinarySearchRelaxation`.  Call n of a solve draws from stream n
+    of ``seed``."""
+
+    def __init__(self, nit: int = 100, rank_radio: int = 2, alpha: float = 1.0,
+                 eta: float = 0.1, log_gap: bool = False,
+                 lanczos_m: Optional[int] = None, seed: int = 0):
+        SDPSolverBase.__init__(self, nit=nit, rank_radio=rank_radio,
+                               alpha=alpha)
+        self.eta = eta
+        self.LOG_GAP = log_gap
+        self.lanczos_m = lanczos_m
+        self.seed = seed
+        self._ncall = 0
+
+    def _draws(self, state: SigState) -> TorchDraws:
+        self._ncall += 1
+        return TorchDraws(self.seed, state.mask.device, stream=self._ncall)
+
+    def _d_pad_for(self, state: SigState, Z: int) -> Tuple[int, int]:
+        # Pad the sketch width to the binary search's upper bound, so every
+        # probe has one shape; bucket to multiples of 16.
+        _, ub = state.degree_bounds()
+        zmax = max(int(Z), ub)
+        D_pad = ((zmax * self.rank_radio + 15) // 16) * 16
+        return D_pad, min(D_pad, state.Kp - 1)
+
+    def run_with_state(self, bs_iteration: int, Z: int, state: SigState,
+                       D_pad: Optional[int] = None):
+        tic = self._get_tic()
+        if D_pad is None:
+            D_pad, rank_pad = self._d_pad_for(state, Z)
+        else:
+            rank_pad = D_pad
+        out = mmw_solve(state, float(Z), nit=self.nit, eta=self.eta,
+                        rank_radio=self.rank_radio, D_pad=D_pad,
+                        rank_pad=rank_pad, draws=self._draws(state),
+                        lanczos_m=self.lanczos_m, log_gap=self.LOG_GAP)
+        tim = self._get_tim(tic, sync=out.X_half)
+        self._add_np_log("mmw_all_it", bs_iteration,
+                         np.array([Z, state.K, tim]))
+        if self.LOG_GAP:
+            gap = out.gap_log.cpu().numpy()
+            for i in range(gap.shape[0]):
+                self._add_np_log("gap", i, np.array(
+                    [gap[i, 0], gap[i, 1], gap[i, 0] - gap[i, 1]]))
+        self.last_output = out
+        return True, out.X_half
+
+    def run_with_state_profiled(self, bs_iteration: int, Z: int,
+                                state: SigState):
+        """Profiled solve: per-phase wall times (CUDA-synchronized) under
+        the reference's metric keys (mmw_state_process / mmw_dual /
+        mmw_loss / mmw_expm / mmw_per_it / mmw_xavg / mmw_all_it).  The
+        same arithmetic and draws as :func:`mmw_solve` at the same call
+        count, minus the gap telemetry."""
+        Kp, K = state.Kp, state.K
+        D_pad, rank_pad = self._d_pad_for(state, Z)
+        dtype, device = state.S.dtype, state.S.device
+        state_process, dual_step, loss_step, expm_step = make_mmw_phase_fns(
+            nit=self.nit, eta=self.eta, rank_radio=self.rank_radio,
+            D_pad=D_pad, lanczos_m=self.lanczos_m)
+
+        all_tic = self._get_tic()
+        sp_tic = self._get_tic()
+        op = state_process(state, torch.tensor(float(Z), dtype=dtype,
+                                               device=device))
+        self._add_np_log("mmw_state_process", 0, np.array(
+            [Z, K, self._get_tim(sp_tic, sync=op.St)]))
+        draws = self._draws(state)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        X_mdiag = torch.where(state.mask, 1.0, 0.0).to(dtype)
+        X_offdi = zeros(Kp, Kp)
+        eaD, eaF, eaH = zeros(Kp), zeros(Kp, Kp), zeros(Kp)
+        L_accu = zeros(Kp, Kp)
+        X_avgd = zeros(Kp, Kp)
+        for i in range(self.nit):
+            per_tic = self._get_tic()
+            X_avgd = X_avgd + X_offdi + torch.diag(X_mdiag)
+
+            tic = self._get_tic()
+            eaD, eaF, eaH, YD, YF, YH = dual_step(op, float(Z), X_mdiag,
+                                                  X_offdi, eaD, eaF, eaH)
+            self._add_np_log("mmw_dual", i,
+                             np.array([Z, K, self._get_tim(tic, sync=YH)]))
+
+            tic = self._get_tic()
+            L_accu = loss_step(op, float(Z), L_accu, YD, YF, YH)
+            self._add_np_log("mmw_loss", i, np.array(
+                [Z, K, self._get_tim(tic, sync=L_accu)]))
+
+            tic = self._get_tic()
+            X_mdiag, X_offdi = expm_step(op, float(Z), L_accu, draws, i)
+            self._add_np_log("mmw_expm", i, np.array(
+                [Z, K, self._get_tim(tic, sync=X_offdi)]))
+            self._add_np_log("mmw_per_it", i,
+                             np.array([Z, K, self._get_tim(per_tic)]))
+
+        tic = self._get_tic()
+        X_half = _factor(X_avgd / self.nit, op, float(Z), K, self.rank_radio,
+                         rank_pad, draws)
+        self._add_np_log("mmw_xavg", 0, np.array(
+            [Z, K, self._get_tim(tic, sync=X_half)]))
+        self._add_np_log("mmw_all_it", bs_iteration,
+                         np.array([Z, K, self._get_tim(all_tic)]))
+        return True, X_half

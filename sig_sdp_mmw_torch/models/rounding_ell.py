@@ -6,8 +6,10 @@ The greedy scan is sequential pointer-chasing over the interference graph,
 so it runs in the shared C++ loop (``csrc/sig_native.cpp::sig_greedy_round``);
 the port computes the ordering and slot preferences from torch draws and
 hands them to that loop.  The JAX package's on-device greedy and wavefront
-roundings follow the same reference greedy trajectory; they are not ported
-yet.
+roundings of the sparse state follow the same reference greedy trajectory;
+they are not ported yet.  The dense path's device rounding is
+:mod:`sig_sdp_mmw_torch.models.rounding` (first attempt with remainder 0,
+else the last one; this module keeps the best).
 """
 
 from __future__ import annotations

@@ -29,8 +29,9 @@ class BinarySearchRelaxation(StatsObject):
 
     def set_bounds(self, state) -> Tuple[int, int]:
         """Accepts any state container exposing ``degree_bounds()`` /
-        ``asso_lower_bound()``, such as
-        :class:`sig_sdp_mmw_torch.core.ell.EllState`."""
+        ``asso_lower_bound()``: the dense
+        :class:`sig_sdp_mmw_torch.core.problem.SigState` and the sparse
+        :class:`sig_sdp_mmw_torch.core.ell.EllState` both do."""
         if self.force_lower_bound:
             lb = state.asso_lower_bound()
             return lb, lb

@@ -143,3 +143,19 @@ def lanczos_expm_multiply(matvec: MatVec, V: torch.Tensor, m: int,
     # storage of the bases.
     F = torch.bmm(coeff[:, None, :], Q.permute(2, 0, 1))[:, 0, :].T
     return F, sigma
+
+
+def taylor_expm_multiply(matvec: MatVec, V: torch.Tensor, steps: int,
+                         order: int = 12) -> torch.Tensor:
+    """Validation path: ``(exp(A/steps))^steps V`` with a fixed-order
+    truncated Taylor series per substep.  No log-scaling — only for small
+    ``||A||`` cross-checks against the Lanczos path."""
+    s = float(steps)
+    for _ in range(steps):
+        term = V
+        acc = V
+        for p in range(1, order + 1):
+            term = matvec(term) / (s * p)
+            acc = acc + term
+        V = acc
+    return V

@@ -14,6 +14,21 @@ trajectories, while a run uses :class:`TorchDraws`:
   Gaussian slot vectors;
 * ``fill(attempt, K, Z)``       — the random slot of every user left
   unassigned by that attempt (numpy int32 [K]).
+
+The dense path (``models/rounding.py``, ``env/env.py``) adds:
+
+* ``dense_rounding_rv(attempt, Z_pad, D, dtype)`` — a dense rounding
+  attempt's [Z_pad, D] Gaussian slot vectors (all Z_pad slots drawn);
+* ``dense_fill(Kp, Z)``         — the dense rounding's one fallback draw: a
+  random slot in [0, max(Z, 1)) for each of the Kp users (int32 tensor on
+  the draws' device);
+* ``locations(shape, dtype)``   — uniform [0, 1) user positions (scaled to
+  the grid by the env);
+* ``directions(shape, dtype)``  — the users' initial Gaussian directions;
+* ``mobility(step, shape, dtype)`` — mobility substep ``step``'s Gaussian
+  direction redraws;
+* ``packet_loss(step, bler)``   — packet-loss evaluation ``step``'s
+  Bernoulli(bler) draws (int32, on bler's device).
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ def _mix(*words: int) -> int:
 
 
 _SKETCH, _OMEGA, _GAP, _ROUND, _FILL = range(5)
+_DENSE_RV, _DENSE_FILL, _LOC, _DIR, _MOB, _PCKL = range(5, 11)
 
 
 class TorchDraws:
@@ -72,3 +88,26 @@ class TorchDraws:
         g = self._gen(_FILL, attempt, device="cpu")
         return torch.randint(0, max(int(Z), 1), (K,), generator=g,
                              dtype=torch.int32).numpy()
+
+    def dense_rounding_rv(self, attempt: int, Z_pad: int, D: int,
+                          dtype) -> torch.Tensor:
+        return self._normal((Z_pad, D), dtype, _DENSE_RV, attempt)
+
+    def dense_fill(self, Kp: int, Z: int) -> torch.Tensor:
+        return torch.randint(0, max(int(Z), 1), (Kp,),
+                             generator=self._gen(_DENSE_FILL),
+                             dtype=torch.int32, device=self.device)
+
+    def locations(self, shape, dtype) -> torch.Tensor:
+        return torch.rand(shape, generator=self._gen(_LOC), dtype=dtype,
+                          device=self.device)
+
+    def directions(self, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _DIR)
+
+    def mobility(self, step: int, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _MOB, step)
+
+    def packet_loss(self, step: int, bler: torch.Tensor) -> torch.Tensor:
+        g = self._gen(_PCKL, step, device=bler.device)
+        return torch.bernoulli(bler, generator=g).to(torch.int32)

@@ -21,6 +21,12 @@ from sig_sdp_mmw_torch.utils.tensors import cuda_sync
 LOGGED_NP_DATA_HEADER_SIZE = 3
 
 
+def get_current_time_str() -> str:
+    from datetime import datetime
+
+    return datetime.now().strftime("%Y-%B-%d-%H-%M-%S")
+
+
 class StatsObject:
     """Mixin: per-instance metric tables + µs timers."""
 

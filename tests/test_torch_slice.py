@@ -92,7 +92,10 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.experiments.e2e_large,"
             " sig_sdp_mmw_torch.experiments.million_link_e2e,"
             " sig_sdp_mmw_torch.experiments.bench_flat_spmm,"
-            " sig_sdp_mmw_torch.ops.kernels; "
+            " sig_sdp_mmw_torch.ops.kernels,"
+            " sig_sdp_mmw_torch.experiments.sim_mmw_time,"
+            " sig_sdp_mmw_torch.experiments.profile_iteration,"
+            " sig_sdp_mmw_torch.env.mob, sig_sdp_mmw_torch.models.rounding; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -49,13 +49,15 @@ def to_torch(x):
 
 
 class JaxDraws:
-    """The draws of ``sig_sdp_mmw_tpu`` for one solve (``mmw_solve_ell``'s
-    ``key``) or one rounding (``rounding_native_csr``'s ``key``), by role,
-    on the JAX package's key schedule."""
+    """The draws of ``sig_sdp_mmw_tpu`` for one solve (``mmw_solve`` /
+    ``mmw_solve_ell``'s ``key``) or one rounding (``rounding_native_csr``'s
+    or the dense ``rounding``'s ``key``; ``nattempt`` for the latter), by
+    role, on the JAX package's key schedule."""
 
-    def __init__(self, key, nit: int = 0):
+    def __init__(self, key, nit: int = 0, nattempt: int = 10):
         self.key = key
         self.nit = nit
+        self.nattempt = nattempt
 
     def _normal(self, k, shape, dtype):
         return to_torch(jax.random.normal(k, shape, _JNP_DTYPE[dtype]))
@@ -79,3 +81,12 @@ class JaxDraws:
         k = jax.random.fold_in(jax.random.fold_in(self.key, attempt), 99)
         return np.asarray(jax.random.randint(k, (K,), 0, max(int(Z), 1),
                                              jnp.int32))
+
+    def dense_rounding_rv(self, attempt, Z_pad, D, dtype):
+        k = jax.random.split(self.key, self.nattempt)[attempt]
+        return self._normal(k, (Z_pad, D), dtype)
+
+    def dense_fill(self, Kp, Z):
+        k = jax.random.fold_in(self.key, 99)
+        return to_torch(jax.random.randint(k, (Kp,), 0, max(int(Z), 1),
+                                           jnp.int32))
