@@ -26,28 +26,41 @@
      the SpMM bench entry point (sig_sdp_mmw_torch/experiments/
      bench_flat_spmm.py) at G=8 and G=32, which also runs the ELL and flat
      kernels on that operand;
+   * the generic tile (block shapes without a fast path), at D=48 on the
+     same S̃: flat at 8x128 (bf16 and float32), 16x128 and 32x32 (bf16);
+     block-ELL at 16x128, 16x16 and 32x32 (bf16); V-resident at 8x128
+     (bf16); and the K=1,009,200 S̃ as flat 8x128 bf16 blocks, G=8, D=16
+     (126,160 block-rows), each counted as a generic launch;
    * the yardstick PyTorch call (bench_flat_spmm.library_spmm: a BSR tensor
      of the real blocks @ V, in the block dtype where PyTorch runs it, else
      float32), with the device kernels the profiler saw it run, for the
-     main-path products, the float32 cases and the V-resident cases.  The
-     port never calls it.
+     main-path products, the float32 cases, the V-resident cases and the
+     generic shapes.  The port never calls it.
 3. The 100k path: the block-sparse pipeline of
    sig_sdp_mmw_torch/experiments/e2e_large.py on cell 183 (K=100,467; bf16
    blocks, stored transpose, flat_group=8, nit=150, eta=0.05, 10 rounding
-   attempts): rem 0, independent verification, every operand on the card,
-   S̃/S̃ᵀ through the flat kernel and Q and the epilogue through the
-   block-ELL kernel.  Then a short solve with the gap log
+   attempts), rounding on the device as the JAX tool does (Kp > 16,384: the
+   wavefront at every probe): rem 0, independent verification, Z_fin within
+   1 of E2E_LARGE.json's 16, every operand on the card, S̃/S̃ᵀ through the
+   flat kernel and Q and the epilogue through the block-ELL kernel; the
+   rounding seconds per probe and wavefront rounds per attempt, the native
+   scan timed once on the last probe's factor after the pipeline returns
+   (so the search's seconds are the device route's alone), and the
+   heuristic rows MAX_GAIN_ELL and MAX_RAND_ELL at Z_fin (rem 0 must
+   verify).  Then
+   a short solve with the gap log
    (MMWEll(nit=5, log_gap=True) at Z=16 on that instance's flat operands):
    its gap Lanczos sends D=1 through the flat kernel, and every gap entry
    must be finite.
 4. The million-link path: sig_sdp_mmw_torch/experiments/million_link_e2e.py
    at its defaults (cell 580, K=1,009,200: 128x128 bf16 blocks with stored
    transpose, gram_mode="edge", row_chunk=2048, D_pad=48, lanczos_m=8,
-   segments of 5, probes at nit=120 with one subspace iteration, the
-   convergence run at nit=625, eta=0.04, 3 rounding attempts, window 8),
-   without BLER: K, rem 0, verification, Z_fin within 1 of the JAX
-   record's 20 (MILLION_LINK_E2E.json), cuda placement, and at least
-   probes x nit_probe x 3 x lanczos_m block-ELL launches.  Nothing is cut.
+   segments of 5, probes at nit=120 with one subspace iteration, 3
+   rounding attempts, window 8), without BLER, and with the convergence
+   run at Z_fin cut from nit=625 to 150 (eta=0.04): K, rem 0,
+   verification, Z_fin within 1 of the JAX record's 20
+   (MILLION_LINK_E2E.json), cuda placement, and at least probes x
+   nit_probe x 3 x lanczos_m block-ELL launches.
 5. The dense journal-scale path (sig_sdp_mmw_torch/models/mmw.py, plain
    torch products, TF32 off), on the K=300 reference geometry
    (tests/fixtures/env_mid.npz: cell 10, rho 0.0075, seed 3, pad_to=320):
@@ -61,6 +74,13 @@
    experiments/sim_mmw_time.py at cells 10 and 15 (K=675), every CSV
    written with finite times, and a search at cell 15 with MMW(nit=150,
    eta=0.04): rem 0, verified; (d) the SpMM kernels launched 0 times.
+6. Mid-K (LargeEnv cell 40, Kp <= 16,384, so the device rounding takes the
+   batched route) on 32x32 bf16 blocks, so S̃/S̃ᵀ go through the flat
+   kernel's generic tile and Q through the block-ELL kernel's: e2e_large
+   with search="binary" and search="speculative" (wave 4): rem 0,
+   verified, Z within 1 of each other, generic launches on both kernels,
+   none of the V-resident kernel, every operand on the card.
+Each phase prints its seconds ("[time] phase N").
 
 Every kernel counts its launches; each path's counts are set to 0 just
 before it runs and read just after (the V-resident kernel's path is the
@@ -68,9 +88,12 @@ SpMM bench; it must launch 0 times on the 100k and million-link paths,
 and no kernel may launch on the dense path, as in the JAX package).
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  The line before the last is the
-kernels' JSON record, the last ``{"ok": true, "device": {...}}``.
+kernels' JSON record (each kernel with its phase-6 generic launches and the
+generic block shapes checked in phase 2), the last ``{"ok": true,
+"device": {...}}``.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -83,6 +106,10 @@ from concurrent.futures import ThreadPoolExecutor
 CELL, RHO, SEED, NIT, ETA, NATTEMPT, GROUP = 183, 75e-4, 0, 150, 0.05, 10, 8
 MILLION_CELL, MILLION_ROW_CHUNK = 580, 2048
 MILLION_Z_REF = 20   # MILLION_LINK_E2E.json (19 at a larger probe budget)
+# The convergence run at Z_fin, cut from the entry point's 625 iterations
+# to keep the script's time for phases 3 and 6 (the search, rem, the
+# checker and the launch counts do not depend on it).
+MILLION_NIT_CONV = 150
 # The JAX package's Z_fin on the K=300 reference geometry (tests/fixtures/
 # env_mid.npz: cell 10, rho 0.0075, seed 3, pad_to=320) with
 # BinarySearchRelaxation + MMW(nit=100, eta=0.05, seed=0), on the CPU, in
@@ -90,6 +117,11 @@ MILLION_Z_REF = 20   # MILLION_LINK_E2E.json (19 at a larger probe budget)
 # tests/test_torch_dense_slice.py recomputes it.
 DENSE_Z_REF = 11
 DENSE_NIT = 150
+E2E_Z_REF = 16        # E2E_LARGE.json (the JAX tool on cell 183)
+# The JAX tool's heuristic rows at that Z (E2E_LARGE.json).
+E2E_HEUR_REF = {"mgain": "rem 0, verified", "mrand": "rem 19, not verified"}
+MIDK_CELL, MIDK_BLOCK = 40, 32
+GENERIC_D = 48
 REPLACES = {"bsr_spmm_flat": "sig_sdp_mmw_tpu/ops/bcsr.py:334",
             "bcsr_spmm_ell": "sig_sdp_mmw_tpu/ops/bcsr.py:183",
             "bsr_spmm_vres": "sig_sdp_mmw_tpu/ops/bcsr.py:397"}
@@ -107,9 +139,9 @@ def gpu_line() -> str:
 
 
 def reset_launches(tb) -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    tb.bsr_spmm_flat.launches = tb.bcsr_spmm.launches = 0
-    tb.bsr_spmm_vres.launches = 0
+    """Set every kernel wrapper's launch counts to 0."""
+    for fn in (tb.bsr_spmm_flat, tb.bcsr_spmm, tb.bsr_spmm_vres):
+        fn.launches = fn.generic_launches = 0
 
 
 def compare(name, mat, V, kernel, plain, iters=20, library=False):
@@ -317,6 +349,102 @@ def dense_phase(tb, out_dir: str) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def remembering_last_rounding(last: dict):
+    """While the block, ``MMWEll.rounding`` keeps a reference to its last
+    call's solver, Z, factor and remainder in ``last``: no copy, no sync
+    and no extra work, so the search's seconds stay the route's own."""
+    from sig_sdp_mmw_torch.models.mmw_ell import MMWEll
+
+    device_rounding = MMWEll.rounding
+
+    def rounding(self, Z, gX, ell, nattempt=None):
+        out = device_rounding(self, Z, gX, ell, nattempt)
+        last.update(alg=self, Z=int(Z), gX=gX, rem=int(out[2]),
+                    nattempt=nattempt or self.nattempt)
+        return out
+
+    MMWEll.rounding = rounding
+    try:
+        yield last
+    finally:
+        MMWEll.rounding = device_rounding
+
+
+def native_rounding_on_last_factor(last: dict, device_s: float) -> dict:
+    """The native C++ scan (rounding_native_csr, the 1M path's route),
+    timed once on the factor of the search's last probe beside the device
+    route's seconds on that probe."""
+    import torch
+
+    from sig_sdp_mmw_torch.models.rounding_ell import rounding_native_csr
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    alg, gX = last["alg"], last["gX"]
+    _, S, Q, h, StT = alg._host
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, _, rem = rounding_native_csr(last["Z"], gX, S, Q, h,
+                                    TorchDraws(alg.seed, gX.device),
+                                    nattempt=last["nattempt"], StT_csr=StT)
+    native_s = time.time() - t0
+    out = {"Z": last["Z"], "device_s": device_s, "device_rem": last["rem"],
+           "native_s": native_s, "native_rem": int(rem)}
+    last.clear()
+    return out
+
+
+def midk_phase(tb, e2e_main) -> dict:
+    """Phase 6, the mid-K instance (LargeEnv cell 40, Kp <= 16,384) on 32x32
+    bf16 blocks (stored transpose, flat_group=8): S̃/S̃ᵀ through the flat
+    kernel's generic tile, Q and the epilogue through the block-ELL
+    kernel's.  (a) the binary search, each probe rounded on the batched
+    route; (b) the speculative search (wave 4).  Both rem 0 and verified,
+    their Z within 1 of each other, every operand on the card, generic
+    launches on both kernels, none of the V-resident kernel."""
+    kw = dict(cell=MIDK_CELL, rho=RHO, seed=SEED, nit=NIT, eta=ETA,
+              nattempt=NATTEMPT, block=MIDK_BLOCK, bf16=True,
+              flat_group=GROUP, device="cuda", rounding="device")
+    out = {"flat_generic_launches": 0, "ell_generic_launches": 0}
+    for search in ("binary", "speculative"):
+        reset_launches(tb)
+        t0 = time.time()
+        rec = e2e_main(search=search, wave=4, **kw)
+        n = {"flat": (tb.bsr_spmm_flat.launches,
+                      tb.bsr_spmm_flat.generic_launches),
+             "ell": (tb.bcsr_spmm.launches, tb.bcsr_spmm.generic_launches),
+             "vres": (tb.bsr_spmm_vres.launches,
+                      tb.bsr_spmm_vres.generic_launches)}
+        r = {k: rec[k] for k in ("K", "lb", "ub", "Z_fin", "remainder",
+                                 "verified_feasible", "n_probes", "probe_Z",
+                                 "operand_devices", "search_mode")}
+        r.update(seconds=time.time() - t0, search_s=rec["phases_s"]["search"],
+                 launches=n)
+        if search == "binary":
+            r.update(solve_s=[x / 1e6 for x in rec["solve_us_per_probe"]],
+                     rounding_s=[x / 1e6 for x in rec["rounding_us_per_probe"]],
+                     routes=sorted({i["route"] for i in rec["rounding_info"]}))
+        else:
+            r.update(n_waves=rec["n_waves"], waves=rec["wave_rows"])
+        log(f"[6 midk] cell {MIDK_CELL} {json.dumps(r)}")
+        out[search] = r
+        out["flat_generic_launches"] += n["flat"][1]
+        out["ell_generic_launches"] += n["ell"][1]
+        if rec["remainder"] != 0 or not rec["verified_feasible"]:
+            raise AssertionError(f"mid-K {search}: not feasible")
+        if rec["operand_devices"] != ["cuda"]:
+            raise AssertionError(f"mid-K {search}: operands on "
+                                 f"{rec['operand_devices']}")
+        if n["flat"][1] == 0 or n["ell"][1] == 0 or n["vres"][0]:
+            raise AssertionError(f"mid-K {search}: launches {n}")
+        if search == "binary" and r["routes"] != ["batch"]:
+            raise AssertionError(f"mid-K rounding routes {r['routes']}")
+    if abs(out["binary"]["Z_fin"] - out["speculative"]["Z_fin"]) > 1:
+        raise AssertionError("mid-K: speculative and binary Z differ by more "
+                             "than 1")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -442,6 +570,52 @@ def main() -> int:
         del mat
     torch.cuda.empty_cache()
 
+    # The generic tile: block shapes without a fast path, on the same S̃.
+    generic = {name: [] for name in REPLACES}
+
+    def check_generic(kind, csr, block, dt, D=GENERIC_D, iters=20):
+        Br, Bc = block
+        dname = str(dt).split(".")[-1]
+        if kind == "ell":
+            mat = tb.bcsr_from_csr(csr, block=block, dtype=dt, device="cuda")
+            fn, plain, key = tb.bcsr_spmm, tb.bcsr_spmm_reference, \
+                "bcsr_spmm_ell"
+            shape = f"Kbr={mat.Kb} maxblk={mat.bcols.shape[1]}"
+        else:
+            mat = tb.bsr_flat_from_csr(csr, block=block, group=GROUP,
+                                       dtype=dt, device="cuda")
+            fn = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
+            plain, key = tb.bsr_spmm_flat_reference, f"bsr_spmm_{kind}"
+            shape = f"Kbr={mat.Kbr} steps={mat.nsteps}x{mat.G}"
+        V = randn(mat.nrows, D)
+        name = f"generic {kind} {Br}x{Bc} {dname} D={D}"
+        log(f"[2 generic] {name}: {shape}")
+        g0 = fn.generic_launches
+        rec = compare(name, mat, V, lambda: fn(mat, V), lambda: plain(mat, V),
+                      iters=iters, library=True)
+        if fn.generic_launches <= g0:
+            raise AssertionError(f"{name} did not go through the generic "
+                                 "tile")
+        generic[key].append(dict(
+            shape=f"{Br}x{Bc}", dtype=dname, D=D, rows=mat.nrows,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], share=rec["bound_ms"] / rec["ms"],
+            library_ms=rec["library_ms"],
+            library_dtype=rec["library_dtype"]))
+        del mat, V
+        torch.cuda.empty_cache()
+        return generic[key][-1]
+
+    t0 = time.time()
+    for block, dt in (((8, 128), torch.bfloat16), ((8, 128), torch.float32),
+                      ((16, 128), torch.bfloat16), ((32, 32), torch.bfloat16)):
+        check_generic("flat", St, block, dt)
+    for block in ((16, 128), (16, 16), (32, 32)):
+        check_generic("ell", St, block, torch.bfloat16)
+    check_generic("vres", St, (8, 128), torch.bfloat16)
+    log(f"[2 generic] 100k shapes [{time.time() - t0:.1f}s]")
+
     # Kernel #2 on its path, the SpMM bench entry point (its vres runs are
     # checked against the plain version inside).
     reset_launches(tb)
@@ -463,6 +637,7 @@ def main() -> int:
     log(f"[2 kernel] million-link operand: K={S1.shape[0]} "
         f"nnz(S~)={ops.nnz} blocks {tuple(mat.blocks.shape)} "
         f"Q slots {tuple(ops.q_bcols.shape)} [{time.time() - t0:.1f}s]")
+    St1 = build_st_csr(S1, Q1)
     del S1, Q1
     check_ell("ell S~ 1M bfloat16 D=48", mat, 48,
               row_chunk=MILLION_ROW_CHUNK, iters=5, library=True)
@@ -472,18 +647,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_ell("ell Q 1M bfloat16 D=48", qop, 48,
               row_chunk=MILLION_ROW_CHUNK, iters=5, library=True)
-    del qop, S, Q, St
+    del qop
+    torch.cuda.empty_cache()
+    # The million-link S̃ as flat block-CSR at the packers' default 8x128
+    # blocks: 126,160 block-rows, past a grid's 65,535 in its second
+    # dimension.  D=16 keeps the plain version's gathered V (one [128, D]
+    # float32 slice per slot, 1.0M slots) at 8 GB.
+    t0 = time.time()
+    r = check_generic("flat", St1, (8, 128), torch.bfloat16, D=16, iters=5)
+    if r["rows"] // 8 <= 65535:
+        raise AssertionError(f"million-link 8x128 operand has only "
+                             f"{r['rows'] // 8} block-rows")
+    log(f"[2 generic] million-link 8x128 [{time.time() - t0:.1f}s]")
+    del S, Q, St, St1
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"[time] phase 1-2 {time.time() - t_start:.1f}s")
+
     # ---- 3. the 100k path, end to end --------------------------------------
+    t_phase = time.time()
     reset_launches(tb)
-    rec = e2e_main(cell=CELL, rho=RHO, seed=SEED, nit=NIT, eta=ETA,
-                   nattempt=NATTEMPT, block=128, bf16=True, flat_group=GROUP,
-                   device="cuda")
+    last = {}
+    with remembering_last_rounding(last):
+        rec = e2e_main(cell=CELL, rho=RHO, seed=SEED, nit=NIT, eta=ETA,
+                       nattempt=NATTEMPT, block=128, bf16=True,
+                       flat_group=GROUP, device="cuda", rounding="device")
     flat_launches = tb.bsr_spmm_flat.launches
     ell_launches_100k = tb.bcsr_spmm.launches
     vres_launches_100k = tb.bsr_spmm_vres.launches
+    rec["rounding_compare"] = native_rounding_on_last_factor(
+        last, rec["rounding_us_per_probe"][-1] / 1e6)
     log("[3 e2e] phases_s " + json.dumps(rec["phases_s"]))
     log(f"[3 e2e] K={rec['K']} nnz(S)={rec['nnz_S']} nnz(Q)={rec['nnz_Q']} "
         f"lb={rec['lb']} ub={rec['ub']} probes={rec['n_probes']} "
@@ -501,8 +695,37 @@ def main() -> int:
     log(f"[3 e2e] operand devices {rec['operand_devices']}; launches: flat "
         f"{flat_launches}, block-ELL {ell_launches_100k}, V-resident "
         f"{vres_launches_100k}")
+    routes = [r["route"] for r in rec["rounding_info"]]
+    log(f"[3 rounding] rounding={rec['rounding']} routes {routes}; Z_pad "
+        f"{rec['rounding_info'][0]['Z_pad']}; wavefront rounds per attempt, "
+        f"per probe {[r.get('rounds') for r in rec['rounding_info']]}")
+    log(f"[3 rounding] rems per attempt, per probe "
+        f"{[r.get('rems') for r in rec['rounding_info']]}")
+    r = rec["rounding_compare"]
+    log(f"[3 rounding] last probe Z={r['Z']}: device (wavefront) "
+        f"{r['device_s']:.3f} s rem {r['device_rem']}; native scan "
+        f"{r['native_s']:.3f} s rem {r['native_rem']}, same X_half")
+    for name in ("mgain", "mrand"):
+        h = rec[name]
+        log(f"[3 heuristics] {name}@Z={rec['Z_fin']}: rem={h['rem']} "
+            f"verified={h['verified_feasible']} interf={h['n_interf_vio']} "
+            f"asso={h['n_asso_vio']} bler mean={h['bler_mean']:.4e} "
+            f"frac>1e-5={h['bler_frac_above_1e-5']:.4f} "
+            f"[{h['wall_s']:.2f}s] (E2E_LARGE.json: {E2E_HEUR_REF[name]})")
+        # rem 0 must mean a feasible assignment.  (MAX_RAND's scan visits
+        # the first K of a random order over all Kp users, so rem also
+        # counts valid users it never visited; their random slots may still
+        # fit, so rem > 0 alone does not mean infeasible.)
+        if h["rem"] == 0 and not h["verified_feasible"]:
+            raise AssertionError(f"{name}: rem 0 but the checker fails")
+    if routes != ["wavefront"] * rec["n_probes"]:
+        raise AssertionError(f"100k rounding routes {routes}, want the "
+                             "wavefront at every probe")
     if rec["remainder"] != 0 or not rec["verified_feasible"]:
         raise AssertionError("100k assignment is not feasible")
+    if abs(rec["Z_fin"] - E2E_Z_REF) > 1:
+        raise AssertionError(f"100k Z_fin {rec['Z_fin']} is not within 1 of "
+                             f"{E2E_Z_REF}")
     if rec["operand_devices"] != ["cuda"]:
         raise AssertionError(f"operands off the card: {rec['operand_devices']}")
     if flat_launches < rec["n_probes"] * NIT:
@@ -514,17 +737,23 @@ def main() -> int:
                              "iterations")
     if vres_launches_100k:
         raise AssertionError("the 100k path launched the V-resident kernel")
+    e2e_rec = {k: rec[k] for k in ("Z_fin", "n_probes", "probe_Z",
+                                    "rounding_info", "rounding_compare",
+                                    "mgain", "mrand")}
     del rec
     gc.collect()
     torch.cuda.empty_cache()
     gap_check(tb)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[time] phase 3 {time.time() - t_phase:.1f}s")
 
     # ---- 4. the million-link path, end to end ------------------------------
+    t_phase = time.time()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(tb)
-    ml = million_main(cell=MILLION_CELL, skip_bler=True, device="cuda")
+    ml = million_main(cell=MILLION_CELL, skip_bler=True, device="cuda",
+                      nit_conv=MILLION_NIT_CONV)
     ell_launches = tb.bcsr_spmm.launches
     vres_launches_1m = tb.bsr_spmm_vres.launches
     cfg = ml["config"]
@@ -559,30 +788,41 @@ def main() -> int:
     del ml
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[time] phase 4 {time.time() - t_phase:.1f}s")
 
     # ---- 5. the dense journal-scale path -----------------------------------
+    t_phase = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         dense_phase(tb, os.path.join(tmp, "sim_mmw_time"))
+    log(f"[time] phase 5 {time.time() - t_phase:.1f}s")
+
+    # ---- 6. mid-K: batched rounding, speculative search, generic tiles -----
+    t_phase = time.time()
+    midk = midk_phase(tb, e2e_main)
+    log(f"[time] phase 6 {time.time() - t_phase:.1f}s")
     log(f"[done] {time.time() - t_start:.1f}s")
 
-    def entry(name, launches, case, source, library=None):
-        library = library or case
+    def entry(name, launches, case, source, generic_launches):
         return {"name": name, "route": "cuda",
                 "source": f"sig_sdp_mmw_torch/ops/kernels/csrc/{source}",
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
-                "library_ms": library["library_ms"]}
+                "library_ms": case["library_ms"],
+                "generic_launches": generic_launches,
+                "block_shapes": generic[name]}
 
+    log(f"[6 summary] {json.dumps(midk)}")
+    log(f"[3 summary] {json.dumps(e2e_rec)}")
     log(gpu)
     log(json.dumps({"kernels": [
         entry("bsr_spmm_flat", flat_launches, cases["flat S~ bfloat16 D=128"],
-              "bsr_spmm_flat.cu"),
+              "bsr_spmm_flat.cu", midk["flat_generic_launches"]),
         entry("bcsr_spmm_ell", ell_launches, cases["ell S~ 1M bfloat16 D=48"],
-              "bcsr_spmm_ell.cu"),
+              "bcsr_spmm_ell.cu", midk["ell_generic_launches"]),
         entry("bsr_spmm_vres", vres_launches,
-              cases["vres S~ bfloat16 G=8 D=48"], "bsr_spmm_vres.cu"),
+              cases["vres S~ bfloat16 G=8 D=48"], "bsr_spmm_vres.cu", 0),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

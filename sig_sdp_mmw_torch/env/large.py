@@ -17,6 +17,8 @@ h_max = diag/min_sinr - 1; ``env.py:168-196``).
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
 from typing import Optional, Tuple
 
@@ -244,9 +246,35 @@ def _tail_factors_per_ap(aps: np.ndarray, p: EnvParams, R: float,
     return out / (nq * nq)
 
 
+@dataclasses.dataclass(frozen=True)
+class SparseEvalGeometry:
+    """What :func:`evaluate_sinr_sparse` needs of a deployment that does
+    not depend on the assignment: the users' linear channel factors ``T``,
+    the AP KD-tree, each user's association and own signal.  Built by
+    :func:`sparse_eval_geometry` from the users and APs it describes."""
+    stas: np.ndarray
+    tree: object
+    T: np.ndarray
+    asso: np.ndarray
+    signal: np.ndarray
+
+
+def sparse_eval_geometry(stas: np.ndarray, aps: np.ndarray,
+                         p: EnvParams) -> SparseEvalGeometry:
+    from scipy.spatial import cKDTree
+
+    T = _linear_channel_factors(stas, aps, p)
+    tree = cKDTree(aps)
+    d_own, asso = tree.query(stas)
+    return SparseEvalGeometry(stas=stas, tree=tree, T=T, asso=asso,
+                              signal=T * (d_own + 1.0) ** -2.8)
+
+
 def evaluate_sinr_sparse(stas: np.ndarray, aps: np.ndarray, p: EnvParams,
                          z, Z: int, eval_min_ratio: float = 1e-3,
-                         tail_correction: bool = True) -> np.ndarray:
+                         tail_correction: bool = True,
+                         geometry: Optional[SparseEvalGeometry] = None,
+                         c_tail: Optional[np.ndarray] = None) -> np.ndarray:
     """Per-user SINR of assignment ``z`` — reference semantics
     (``env.py:198-224``: unthresholded channel, same-slot interference at the
     user's own AP, per-(AP, slot) winner rule) computed in O(K * deg_eval)
@@ -260,21 +288,27 @@ def evaluate_sinr_sparse(stas: np.ndarray, aps: np.ndarray, p: EnvParams,
       correction keeps the *aggregate* unbiased, so the approximation error
       is O(sqrt(n_far)) fluctuations around an exact mean rather than a bias.
       ``tests/test_large_eval.py`` pins agreement with the dense evaluator.
-    """
-    from scipy.spatial import cKDTree
 
+    ``geometry`` (:func:`sparse_eval_geometry` of these ``stas``) and
+    ``c_tail`` (``_tail_factors_per_ap`` at this ``eval_min_ratio``'s
+    radius) let a caller that evaluates one deployment many times compute
+    them once; they are computed here when not given.
+    """
     K = stas.shape[0]
     A = aps.shape[0]
     z = np.asarray(z).astype(np.int64)
-
-    T = _linear_channel_factors(stas, aps, p)
-    tree = cKDTree(aps)
-    d_own, asso = tree.query(stas)
-    signal = T * (d_own + 1.0) ** -2.8
+    if geometry is None:
+        geometry = sparse_eval_geometry(stas, aps, p)
+    elif geometry.stas is not stas:
+        raise ValueError("geometry was built for other users")
+    tree, T, asso, signal = (geometry.tree, geometry.T, geometry.asso,
+                             geometry.signal)
 
     R_eval = interference_cutoff_m(p, min_ratio=eval_min_ratio)
-    c_tail = (_tail_factors_per_ap(aps, p, R_eval)
-              if tail_correction else np.zeros(A))
+    if not tail_correction:
+        c_tail = np.zeros(A)
+    elif c_tail is None:
+        c_tail = _tail_factors_per_ap(aps, p, R_eval)
 
     interference = np.zeros(K)
     valid = (z >= 0) & (z < Z)
@@ -289,12 +323,15 @@ def evaluate_sinr_sparse(stas: np.ndarray, aps: np.ndarray, p: EnvParams,
         for s in range(0, U.size, chunk):
             Uc = U[s:s + chunk]
             nb = tree.query_ball_point(stas[Uc], r=R_eval)
-            rows = np.concatenate(
-                [np.full(len(n), i) for i, n in enumerate(nb)]) \
-                if len(nb) else np.zeros(0, np.int64)
-            cols = np.concatenate([np.asarray(n, np.int64) for n in nb]) \
-                if len(nb) else np.zeros(0, np.int64)
-            d = np.linalg.norm(stas[Uc][rows] - aps[cols], axis=1)
+            lens = np.fromiter(map(len, nb), np.int64, count=len(nb))
+            rows = np.repeat(np.arange(len(nb)), lens)
+            cols = np.fromiter(itertools.chain.from_iterable(nb), np.int64,
+                               count=int(lens.sum()))
+            # The 2-norm of each (user, AP) difference, summed as
+            # np.linalg.norm sums it.
+            dx = stas[Uc, 0][rows] - aps[cols, 0]
+            dy = stas[Uc, 1][rows] - aps[cols, 1]
+            d = np.sqrt(dx * dx + dy * dy)
             np.add.at(load, cols, T[Uc][rows] * (d + 1.0) ** -2.8)
         tail = T[U].sum() * c_tail[asso[U]]
         # Own contribution (the k = j diagonal term, excluded by the
@@ -337,6 +374,10 @@ class LargeEnv:
         self.tail_margin_z = tail_margin_z
         self._state = None
         self._stas = None
+        # The z-independent parts of the evaluator, from this deployment's
+        # own users and APs: its geometry and the tail factors per radius.
+        self._eval_geometry = None
+        self._tail = {}
 
     @property
     def K(self) -> int:
@@ -365,10 +406,20 @@ class LargeEnv:
 
     def evaluate_sinr(self, z, Z: int, eval_min_ratio: float = 1e-3,
                       tail_correction: bool = True) -> np.ndarray:
-        return evaluate_sinr_sparse(self.sta_locs, ap_grid(self.params),
-                                    self.params, z, Z,
+        p, stas, aps = self.params, self.sta_locs, ap_grid(self.params)
+        if self._eval_geometry is None:
+            self._eval_geometry = sparse_eval_geometry(stas, aps, p)
+        c_tail = None
+        if tail_correction:
+            R = interference_cutoff_m(p, min_ratio=eval_min_ratio)
+            if R not in self._tail:
+                self._tail[R] = _tail_factors_per_ap(aps, p, R)
+            c_tail = self._tail[R]
+        return evaluate_sinr_sparse(stas, aps, p, z, Z,
                                     eval_min_ratio=eval_min_ratio,
-                                    tail_correction=tail_correction)
+                                    tail_correction=tail_correction,
+                                    geometry=self._eval_geometry,
+                                    c_tail=c_tail)
 
     def evaluate_bler(self, z, Z: int, **kw) -> np.ndarray:
         p = self.params

@@ -486,14 +486,24 @@ class MMWEll(StatsObject):
     :class:`sig_sdp_mmw_torch.models.search.BinarySearchRelaxation`
     (port of :class:`sig_sdp_mmw_tpu.models.mmw_ell.MMWEll`).
 
-    :meth:`prepare` keeps the host CSR state for the rounding and, with
-    ``use_bcsr=True``, builds the block operands on the state's device.
+    :meth:`prepare` keeps the host CSR state for the native rounding and,
+    with ``use_bcsr=True``, builds the block operands on the state's
+    device.  ``rounding``: ``"device"`` (the default, the JAX package's
+    method) rounds on the ELL state through :func:`sig_sdp_mmw_torch.
+    models.rounding_ell.rounding_ell`, on the route its Kp picks;
+    ``"native"`` rounds through the C++ greedy scan on the host CSR state
+    (:func:`rounding_native_csr`, the best attempt wins).
     """
 
     def __init__(self, nit: int = 100, rank_radio: int = 2,
                  eta: float = 0.1, log_gap: bool = False,
                  lanczos_m: Optional[int] = None, seed: int = 0,
-                 use_bcsr: bool = False, nattempt: int = 10):
+                 use_bcsr: bool = False, nattempt: int = 10,
+                 rounding: str = "device"):
+        if rounding not in ("device", "native"):
+            raise ValueError(f"rounding must be 'device' or 'native', got "
+                             f"{rounding!r}")
+        self.rounding_mode = rounding
         self.nit = nit
         self.rank_radio = rank_radio
         self.eta = eta
@@ -510,6 +520,12 @@ class MMWEll(StatsObject):
         # wider bucket is exact — D_act masks the extra columns).  Pins hold
         # a weakref to their state, so they die with it.
         self._pinned = None     # (weakref(state), D_pad, rank_pad)
+        # The same for the device rounding's slot padding: the first probe
+        # pins the bucket, later (smaller-Z) probes reuse it; a smaller Z in
+        # a wider pad is exact (slots >= Z are masked).
+        self._pinned_zpad = None   # (weakref(state), Z_pad)
+        # One record per rounding call: route, Z_pad, wavefront rounds.
+        self.rounding_info = []
 
     @staticmethod
     def _for_state(entry, ell) -> bool:
@@ -590,15 +606,33 @@ class MMWEll(StatsObject):
         return True, out.X_half
 
     def rounding(self, Z: int, gX, ell, nattempt: Optional[int] = None):
-        """Randomized rounding of ``gX`` through the native greedy scan on
-        the host CSR state kept by :meth:`prepare`."""
-        from sig_sdp_mmw_torch.models.rounding_ell import rounding_native_csr
+        """Randomized rounding of ``gX``: on the ELL state's device
+        (``rounding="device"``, with the sticky Z_pad pin and the draws of
+        stream ``10_000_000 + ncall``, as the JAX package keys it), or
+        through the native greedy scan on the host CSR state kept by
+        :meth:`prepare`.  Each call appends to ``rounding_info`` the route
+        taken and, on the device, Z_pad and the wavefront's rounds per
+        attempt."""
+        from sig_sdp_mmw_torch.models.rounding_ell import (
+            default_z_pad_ell, rounding_ell, rounding_native_csr)
 
+        nattempt = nattempt or self.nattempt
+        self._ncall += 1
+        if self.rounding_mode == "device":
+            z_pad = default_z_pad_ell(ell, Z)
+            if self._for_state(self._pinned_zpad, ell):
+                z_pad = max(z_pad, self._pinned_zpad[1])
+            self._pinned_zpad = (weakref.ref(ell), z_pad)
+            draws = TorchDraws(self.seed, ell.mask.device,
+                               stream=10_000_000 + self._ncall)
+            info = {"Z_pad": z_pad}
+            self.rounding_info.append(info)
+            return rounding_ell(Z, gX, ell, draws, nattempt=nattempt,
+                                Z_pad=z_pad, info=info)
         if not self._for_state(self._host, ell):
             raise RuntimeError("rounding needs prepare(ell, S, Q) first")
         _, S, Q, h, StT = self._host
-        self._ncall += 1
         draws = TorchDraws(self.seed, gX.device, stream=self._ncall)
-        return rounding_native_csr(Z, gX, S, Q, h, draws,
-                                   nattempt=nattempt or self.nattempt,
+        self.rounding_info.append({"route": "native"})
+        return rounding_native_csr(Z, gX, S, Q, h, draws, nattempt=nattempt,
                                    StT_csr=StT)

@@ -18,9 +18,11 @@ dense 128x128 blocks of which only a few percent of entries are nonzero:
 
 Each kernel wrapper takes the plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernel or raises; ``<wrapper>.launches`` counts its
-launches.  The host packers are numpy (above ``_NATIVE_PACK_MIN_NNZ``
-nonzeros, the shared C++ packer) and give the JAX package's arrays exactly;
-the containers hold tensors and move with ``.to(device)``.
+launches and ``<wrapper>.generic_launches`` those through the generic tile
+(block shapes without a fast path of their own).  The host packers are
+numpy (above ``_NATIVE_PACK_MIN_NNZ`` nonzeros, the shared C++ packer) and
+give the JAX package's arrays exactly; the containers hold tensors and move
+with ``.to(device)``.
 """
 
 from __future__ import annotations
@@ -173,9 +175,8 @@ def bcsr_spmm_reference(mat: BlockEll, V: torch.Tensor,
 
 def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
     """Why the block-ELL CUDA kernel cannot take these operands (None if it
-    can).  :func:`bcsr_spmm` pads V's columns to a multiple of 8 first."""
-    if mat.Brow not in (8, 128) or mat.B != 128:
-        return f"blocks must be 128x128 or 8x128, got {mat.Brow}x{mat.B}"
+    can).  Every block shape has a kernel (:func:`bcsr_spmm`), which pads
+    V's columns to a multiple of 8 first."""
     if mat.blocks.dtype not in _KERNEL_BLOCK_DTYPES:
         return f"blocks must be float32 or bfloat16, got {mat.blocks.dtype}"
     if (mat.blocks.dim() != 4 or mat.blocks.shape[0] != mat.Kb
@@ -209,14 +210,18 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     launches the block-ELL kernel on the current stream, which needs no
     chunking, or raises.  V's columns are padded with zeros to a multiple of
     8 for the kernel (the gap Lanczos sends D=1) and the result is sliced
-    back.  ``bcsr_spmm.launches`` counts kernel launches.
+    back.  ``bcsr_spmm.launches`` counts kernel launches,
+    ``bcsr_spmm.generic_launches`` those of them through the generic tile.
 
-    128-row bfloat16 blocks take the tensor-core ring tile: V is rounded to
+    128x128 bfloat16 blocks take the tensor-core ring tile: V is rounded to
     bfloat16 here, once per call (the plain version's cast), and each CTA
     covers ``tile_cols`` output columns (default :func:`ring_tile_cols`).
-    That kernel skips padding slots: it relies on the packers' layout, where
-    a row's real blocks come first and every later slot at column-block 0
-    holds zeros (``tests/test_torch_padding.py`` holds every packer to it).
+    128x128 float32 and 8x128 blocks take the FMA tile; every other block
+    shape the generic FMA tile (Br and Bc at run time, V rounded to the
+    block dtype in the tile).  The ring and generic tiles skip padding
+    slots: they rely on the packers' layout, where a row's real blocks come
+    first and every later slot at column-block 0 holds zeros
+    (``tests/test_torch_padding.py`` holds every packer to it).
     """
     if V.device.type == "cpu":
         return bcsr_spmm_reference(mat, V, row_chunk)
@@ -233,8 +238,15 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     D8 = Vk.shape[1]
     out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
+    dt = _KERNEL_BLOCK_DTYPES[mat.blocks.dtype]
+    generic = (mat.Brow, mat.B) not in ((128, 128), (8, 128))
     with torch.cuda.device(V.device):
-        if mat.Brow == 128 and mat.blocks.dtype == torch.bfloat16:
+        if generic:
+            rc = lib.bcsr_spmm_ell_generic_launch(
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), dt, mat.Brow,
+                mat.B, Vk.data_ptr(), out.data_ptr(), mat.Kb,
+                mat.bcols.shape[1], D8, stream)
+        elif mat.Brow == 128 and mat.blocks.dtype == torch.bfloat16:
             cols, Vb = ring_operand(Vk, tile_cols)
             rc = lib.bcsr_spmm_ell_bf16_launch(
                 mat.bcols.data_ptr(), mat.blocks.data_ptr(), Vb.data_ptr(),
@@ -242,17 +254,17 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
                 cols, stream)
         else:
             rc = lib.bcsr_spmm_ell_launch(
-                mat.bcols.data_ptr(), mat.blocks.data_ptr(),
-                _KERNEL_BLOCK_DTYPES[mat.blocks.dtype], mat.Brow,
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), dt, mat.Brow,
                 Vk.data_ptr(), out.data_ptr(), mat.Kb, mat.bcols.shape[1], D8,
                 stream)
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm: launch failed with cudaError {rc}")
     bcsr_spmm.launches += 1
+    bcsr_spmm.generic_launches += generic
     return out if D8 == D else out[:, :D]
 
 
-bcsr_spmm.launches = 0
+bcsr_spmm.launches = bcsr_spmm.generic_launches = 0
 
 
 def bcsr_spmm_transpose(mat_bcols: torch.Tensor, blocks: torch.Tensor,
@@ -481,10 +493,9 @@ def pad_columns(V: torch.Tensor) -> torch.Tensor:
 
 def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
     """Why the CUDA kernels cannot take these operands (None if they can).
-    The wrappers pad V's columns to a multiple of 8 first
+    Every block shape has a kernel (128x128 its own paths, any other the
+    generic tile).  The wrappers pad V's columns to a multiple of 8 first
     (:func:`pad_columns`)."""
-    if mat.Br != 128 or mat.Bc != 128:
-        return f"blocks must be 128x128, got {mat.Br}x{mat.Bc}"
     if mat.blocks.dtype not in _KERNEL_BLOCK_DTYPES:
         return f"blocks must be float32 or bfloat16, got {mat.blocks.dtype}"
     if V.dtype != torch.float32:
@@ -514,13 +525,17 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     a CUDA tensor launches the kernel on the current stream, or raises.
     Any D: V's columns are padded with zeros to a multiple of 8 for the
     kernel (:func:`pad_columns`) and the result is sliced back.
-    ``bsr_spmm_flat.launches`` counts kernel launches.
+    ``bsr_spmm_flat.launches`` counts kernel launches,
+    ``bsr_spmm_flat.generic_launches`` those of them through the generic
+    tile.
 
-    bfloat16 blocks take the tensor-core ring tile, as in :func:`bcsr_spmm`:
-    V is rounded to bfloat16 here once, ``tile_cols`` output columns per CTA
-    (default :func:`ring_tile_cols`), and the slots that pad a row to a
-    multiple of G (column-block 0 after the row's first slot, all zeros)
-    are skipped."""
+    128x128 bfloat16 blocks take the tensor-core ring tile, as in
+    :func:`bcsr_spmm`: V is rounded to bfloat16 here once, ``tile_cols``
+    output columns per CTA (default :func:`ring_tile_cols`), and the slots
+    that pad a row to a multiple of G (column-block 0 after the row's first
+    slot, all zeros) are skipped.  128x128 float32 blocks take the FMA tile,
+    every other block shape the generic FMA tile (which skips padding slots
+    too)."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
@@ -535,8 +550,15 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     D8 = Vk.shape[1]
     out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
+    generic = (mat.Br, mat.Bc) != (128, 128)
     with torch.cuda.device(V.device):
-        if mat.blocks.dtype == torch.bfloat16:
+        if generic:
+            rc = lib.bsr_spmm_flat_generic_launch(
+                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+                mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
+                mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G,
+                D8, stream)
+        elif mat.blocks.dtype == torch.bfloat16:
             cols, Vb = ring_operand(Vk, tile_cols)
             rc = lib.bsr_spmm_flat_bf16_launch(
                 mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
@@ -550,10 +572,11 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_flat: launch failed with cudaError {rc}")
     bsr_spmm_flat.launches += 1
+    bsr_spmm_flat.generic_launches += generic
     return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
-bsr_spmm_flat.launches = 0
+bsr_spmm_flat.launches = bsr_spmm_flat.generic_launches = 0
 
 
 def vres_operand(V: torch.Tensor) -> torch.Tensor:
@@ -578,8 +601,11 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     once here (:func:`vres_operand` for bfloat16 blocks), and that copy is
     what the kernel keeps in L2; bfloat16 blocks run on persistent CTAs that
     take the block-rows in index order from a counter zeroed on the stream
-    before each launch.  ``bsr_spmm_vres.launches`` counts kernel
-    launches."""
+    before each launch.  Block shapes other than 128x128 go through the flat
+    kernel's generic tile (float32 V rounded in the tile, no residency
+    hint), built into this kernel's library.  ``bsr_spmm_vres.launches``
+    counts kernel launches, ``bsr_spmm_vres.generic_launches`` those of
+    them through the generic tile."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
@@ -594,8 +620,15 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     D8 = Vk.shape[1]
     out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
+    generic = (mat.Br, mat.Bc) != (128, 128)
     with torch.cuda.device(V.device):
-        if mat.blocks.dtype == torch.bfloat16:
+        if generic:
+            rc = lib.bsr_spmm_vres_generic_launch(
+                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+                mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
+                mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G,
+                D8, stream)
+        elif mat.blocks.dtype == torch.bfloat16:
             Vc = vres_operand(Vk)
             counter = torch.empty((1,), dtype=torch.int32, device=V.device)
             rc = lib.bsr_spmm_vres_bf16_launch(
@@ -611,10 +644,11 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_vres: launch failed with cudaError {rc}")
     bsr_spmm_vres.launches += 1
+    bsr_spmm_vres.generic_launches += generic
     return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
-bsr_spmm_vres.launches = 0
+bsr_spmm_vres.launches = bsr_spmm_vres.generic_launches = 0
 
 
 # ---------------------------------------------------------------------------

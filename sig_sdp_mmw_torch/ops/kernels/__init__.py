@@ -13,12 +13,15 @@ start every ``nvcc`` together.
   (``bsr_spmm_vres.cu``).
 
 The first two share their tile code through ``spmm_tile.cuh`` (the
-tensor-core ring tile of bfloat16 blocks, the FMA tile of the rest).  Each
-library has two entry points: ``*_launch`` on CUDA-core FMA (float32 V; for
-the V-resident kernel float32 blocks and V) and ``*_bf16_launch`` for
-128-row bfloat16 blocks (the ring tile; for the V-resident kernel a TMA
-ring feeding wgmma).  A library's build hash covers the headers of
-``csrc/`` as well as its own source.
+tensor-core ring tile of bfloat16 blocks, the FMA tile of the rest, and the
+generic tile of any block shape).  Each library has three entry points:
+``*_launch`` on CUDA-core FMA (float32 V; for the V-resident kernel float32
+blocks and V), ``*_bf16_launch`` for 128-row bfloat16 blocks (the ring
+tile; for the V-resident kernel a TMA ring feeding wgmma), and
+``*_generic_launch`` for every block shape the other two do not take (Br and
+Bc at run time; the V-resident kernel's is the flat kernel's generic body).
+A library's build hash covers the headers of ``csrc/`` as well as its own
+source.
 """
 
 from __future__ import annotations
@@ -88,6 +91,9 @@ def bsr_spmm_flat_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.bsr_spmm_flat_bf16_launch.restype = i32
     lib.bsr_spmm_flat_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, i32,
                                               i32, i32, i32, vp]
+    lib.bsr_spmm_flat_generic_launch.restype = i32
+    lib.bsr_spmm_flat_generic_launch.argtypes = [vp, vp, vp, i32, i32, i32,
+                                                 vp, vp, i32, i32, i32, vp]
     return lib
 
 
@@ -100,6 +106,9 @@ def bcsr_spmm_ell_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.bcsr_spmm_ell_bf16_launch.restype = i32
     lib.bcsr_spmm_ell_bf16_launch.argtypes = [vp, vp, vp, i32, vp, i64, i32,
                                               i32, i32, vp]
+    lib.bcsr_spmm_ell_generic_launch.restype = i32
+    lib.bcsr_spmm_ell_generic_launch.argtypes = [vp, vp, i32, i32, i32, vp,
+                                                 vp, i64, i32, i32, vp]
     return lib
 
 
@@ -112,6 +121,9 @@ def bsr_spmm_vres_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.bsr_spmm_vres_bf16_launch.restype = i32
     lib.bsr_spmm_vres_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, vp,
                                               i32, i32, i32, i32, vp]
+    lib.bsr_spmm_vres_generic_launch.restype = i32
+    lib.bsr_spmm_vres_generic_launch.argtypes = [vp, vp, vp, i32, i32, i32,
+                                                 vp, vp, i32, i32, i32, vp]
     return lib
 
 

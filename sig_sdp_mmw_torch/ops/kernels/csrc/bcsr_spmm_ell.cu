@@ -9,7 +9,8 @@
 // Operands (all device pointers, contiguous):
 //   bcols   [Kbr, maxblk] int32 column-block id of each slot; a row's real
 //           blocks come first, then padding at column-block 0
-//   blocks  [Kbr, BR, maxblk, 128] float32 or bfloat16, BR = 128 or 8
+//   blocks  [Kbr, BR, maxblk, BC] float32 or bfloat16 (BR x BC = 128x128 or
+//           8x128 on the fast paths, any shape through the generic tile)
 //   V       [Kbr*BR, D] float32, D a multiple of 8 (FMA entry point), or
 //   Vb      [Kbr*BR, ldv] bfloat16, rounded by the wrapper, zero past D
 //           (bf16 entry point)
@@ -36,12 +37,15 @@
 //     bytes of float32);
 //   * keeps 2-3 slices of 16 KB of A per CTA in flight through a cp.async
 //     ring, two CTAs per SM, with mma.sync bf16 on the tensor cores.
-// 128-row float32 blocks and all 8-row blocks (off the main paths) take fp32
+// 128-row float32 blocks and 8x128 blocks (off the main paths) take fp32
 // FMA on the CUDA cores, 64 columns per CTA, every slot walked (a bf16 x
 // bf16-rounded product is exact in fp32, so they agree with the tensor-core
-// path up to summation order).  The grid is one-dimensional (block-row
-// major, the D tiles of a row adjacent), so 8-row blocks at a million links
-// (126,150 block-rows) fit it.
+// path up to summation order).  Every other block shape (Br x Bc at run
+// time: 16x128, 32x32 in the mid-K search, 16x16, ...) takes the generic
+// FMA tile of spmm_tile.cuh (bcsr_spmm_ell_generic_launch), which skips
+// padding slots.  The grid is one-dimensional (block-row major, the D tiles
+// of a row adjacent), so 8-row blocks at a million links (126,150
+// block-rows) fit it.
 
 #include "spmm_tile.cuh"
 
@@ -69,6 +73,20 @@ bcsr_spmm_ell_ring(const int* __restrict__ bcols,
   const int d0 = (blockIdx.x % ndt) * N;
   spmm::ring_tile_bf16<N>(bcols, blocks, Vb, ldv, out, r * maxblk,
                           (r + 1) * maxblk, maxblk, D, r, d0, smem);
+}
+
+// Any other block shape through the generic tile: block-row r is one step
+// of G = maxblk slots.
+template <typename T>
+__global__ void __launch_bounds__(spmm::gen::NT)
+bcsr_spmm_ell_generic(const int* __restrict__ bcols,
+                      const T* __restrict__ blocks,
+                      const float* __restrict__ V, float* __restrict__ out,
+                      int maxblk, int Br, int Bc, int D, int nrc, int ndt) {
+  const spmm::GenericItem it = spmm::generic_item(nrc, ndt);
+  spmm::generic_tile<T>(bcols, blocks, V, out, it.r * maxblk,
+                        (it.r + 1) * maxblk, maxblk, Br, Bc, D, it.r, it.r0,
+                        it.d0);
 }
 
 template <int N>
@@ -121,6 +139,37 @@ int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int blk_dtype,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Any other block shape (Br x Bc at run time) through the generic tile
+// (spmm_tile.cuh): blk_dtype 0 = float32 blocks, 1 = bfloat16; float32 V
+// [Kbr*Br, D], D a multiple of 8; out [Kbr*Br, D] float32.  Returns the
+// cudaError_t of the launch.
+int bcsr_spmm_ell_generic_launch(const void* bcols, const void* blocks,
+                                 int blk_dtype, int Br, int Bc, const void* V,
+                                 void* out, long long Kbr, int maxblk, int D,
+                                 void* stream) {
+  const unsigned grid = spmm::generic_grid(Kbr, Br, D);
+  if (Kbr <= 0 || maxblk <= 0 || Br <= 0 || Bc <= 0 || D <= 0 ||
+      D % 8 != 0 || grid == 0)
+    return (int)cudaErrorInvalidValue;
+  const int nrc = (Br + spmm::gen::RM - 1) / spmm::gen::RM;
+  const int ndt = (D + spmm::DT - 1) / spmm::DT;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int* bc = static_cast<const int*>(bcols);
+  const float* v = static_cast<const float*>(V);
+  float* o = static_cast<float*>(out);
+  if (blk_dtype == 0)
+    bcsr_spmm_ell_generic<float><<<grid, spmm::gen::NT, 0, st>>>(
+        bc, static_cast<const float*>(blocks), v, o, maxblk, Br, Bc, D, nrc,
+        ndt);
+  else if (blk_dtype == 1)
+    bcsr_spmm_ell_generic<__nv_bfloat16><<<grid, spmm::gen::NT, 0, st>>>(
+        bc, static_cast<const __nv_bfloat16*>(blocks), v, o, maxblk, Br, Bc,
+        D, nrc, ndt);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

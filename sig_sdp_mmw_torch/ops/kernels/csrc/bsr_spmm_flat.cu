@@ -1,5 +1,5 @@
 // Flat block-CSR SpMM for Hopper: out = A @ V, A stored as only its real
-// 128x128 blocks.
+// blocks (128x128 on the main path, any Br x Bc through the generic tile).
 //
 // Replaces the TPU kernel sig_sdp_mmw_tpu/ops/bcsr.py::bsr_spmm_pallas_flat
 // (same operands, same contract: V is cast to the block dtype, products
@@ -36,7 +36,13 @@
 //   * float32 blocks (off the main paths) use fp32 FMA on the CUDA cores,
 //     64 columns per CTA, keeping full float32 precision (no TF32); the D
 //     tiles of one block-row are neighbours in the launch order, so the
-//     second tile finds the row's blocks in L2.
+//     second tile finds the row's blocks in L2;
+//   * every other block shape, Br x Bc at run time (the packers' default
+//     8x128, the 32x32 blocks of the mid-K search, ...), goes through the
+//     generic FMA tile of spmm_tile.cuh (bsr_spmm_flat_generic_launch).
+// Every grid is one-dimensional (block-row major, the D tiles of a row
+// adjacent), so an operand may have more than 65,535 block-rows (the
+// million-link S-tilde at 8-row blocks has 126,160).
 
 #include "spmm_tile.cuh"
 
@@ -47,10 +53,11 @@ bsr_spmm_flat_f32(const int* __restrict__ row_ptr,
                   const int* __restrict__ bcols,
                   const float* __restrict__ blocks,
                   const float* __restrict__ V, float* __restrict__ out,
-                  int G, int D) {
-  const int r = blockIdx.y;
+                  int G, int D, int ndt) {
+  const int64_t r = blockIdx.x / ndt;
   spmm::fma_tile<128, float>(bcols, blocks, V, out, row_ptr[r],
-                             row_ptr[r + 1], G, D, r, blockIdx.x * spmm::DT);
+                             row_ptr[r + 1], G, D, r,
+                             (blockIdx.x % ndt) * spmm::DT);
 }
 
 template <int N>
@@ -59,12 +66,12 @@ bsr_spmm_flat_ring(const int* __restrict__ row_ptr,
                    const int* __restrict__ bcols,
                    const __nv_bfloat16* __restrict__ blocks,
                    const __nv_bfloat16* __restrict__ Vb, int ldv,
-                   float* __restrict__ out, int G, int D) {
+                   float* __restrict__ out, int G, int D, int ndt) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int r = blockIdx.y;
+  const int64_t r = blockIdx.x / ndt;
   spmm::ring_tile_bf16<N>(bcols, blocks, Vb, ldv, out,
                           (int64_t)row_ptr[r] * G, (int64_t)row_ptr[r + 1] * G,
-                          G, D, r, blockIdx.x * N, smem);
+                          G, D, r, (blockIdx.x % ndt) * N, smem);
 }
 
 template <int N>
@@ -72,13 +79,15 @@ int launch_ring(const int* row_ptr, const int* bcols,
                 const __nv_bfloat16* blocks, const __nv_bfloat16* Vb, int ldv,
                 float* out, int Kbr, int G, int D, cudaStream_t st) {
   const int ndt = (D + N - 1) / N;
-  if (ldv < ndt * N) return (int)cudaErrorInvalidValue;
+  if (ldv < ndt * N || (long long)Kbr * ndt > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   constexpr int smem = spmm::ring::Cfg<N>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       bsr_spmm_flat_ring<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  bsr_spmm_flat_ring<N><<<dim3(ndt, Kbr), spmm::ring::NT, smem, st>>>(
-      row_ptr, bcols, blocks, Vb, ldv, out, G, D);
+  bsr_spmm_flat_ring<N><<<(unsigned)((long long)Kbr * ndt), spmm::ring::NT,
+                          smem, st>>>(row_ptr, bcols, blocks, Vb, ldv, out, G,
+                                      D, ndt);
   return (int)cudaGetLastError();
 }
 
@@ -91,15 +100,29 @@ extern "C" {
 int bsr_spmm_flat_launch(const void* row_ptr, const void* bcols,
                          const void* blocks, const void* V, void* out,
                          int Kbr, int G, int D, void* stream) {
-  if (Kbr <= 0 || Kbr > 65535 || G <= 0 || D <= 0 || D % 8 != 0)
+  const int ndt = (D + spmm::DT - 1) / spmm::DT;
+  if (Kbr <= 0 || G <= 0 || D <= 0 || D % 8 != 0 ||
+      (long long)Kbr * ndt > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((D + spmm::DT - 1) / spmm::DT, Kbr);
-  bsr_spmm_flat_f32<<<grid, spmm::Fma<128>::NT, 0,
+  bsr_spmm_flat_f32<<<(unsigned)((long long)Kbr * ndt), spmm::Fma<128>::NT, 0,
                       reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(bcols),
       static_cast<const float*>(blocks), static_cast<const float*>(V),
-      static_cast<float*>(out), G, D);
+      static_cast<float*>(out), G, D, ndt);
   return (int)cudaGetLastError();
+}
+
+// Any other block shape (Br x Bc at run time) through the generic tile
+// (spmm_tile.cuh): blk_dtype 0 = float32 blocks, 1 = bfloat16; float32 V
+// [nrows, D], D a multiple of 8; out [nrows, D] float32.  Returns the
+// cudaError_t of the launch.
+int bsr_spmm_flat_generic_launch(const void* row_ptr, const void* bcols,
+                                 const void* blocks, int blk_dtype, int Br,
+                                 int Bc, const void* V, void* out, int Kbr,
+                                 int G, int D, void* stream) {
+  return spmm::launch_flat_generic(row_ptr, bcols, blocks, blk_dtype, Br, Bc,
+                                   V, out, Kbr, G, D,
+                                   reinterpret_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 blocks through the ring tile: Vb [nrows, ldv] bf16, ncols output
@@ -109,8 +132,7 @@ int bsr_spmm_flat_bf16_launch(const void* row_ptr, const void* bcols,
                               const void* blocks, const void* Vb, int ldv,
                               void* out, int Kbr, int G, int D, int ncols,
                               void* stream) {
-  if (Kbr <= 0 || Kbr > 65535 || G <= 0 || D <= 0 || D % 8 != 0 ||
-      ldv % 8 != 0)
+  if (Kbr <= 0 || G <= 0 || D <= 0 || D % 8 != 0 || ldv % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const int* rp = static_cast<const int*>(row_ptr);
   const int* bc = static_cast<const int*>(bcols);

@@ -1,5 +1,6 @@
 // Flat block-CSR SpMM with V held resident for Hopper: out = A @ V, A stored
-// as only its real 128x128 blocks, G per step.
+// as only its real blocks (128x128; other shapes through the generic tile),
+// G per step.
 //
 // Replaces the TPU kernel sig_sdp_mmw_tpu/ops/bcsr.py::bsr_spmm_pallas_vres:
 // the contract of bsr_spmm_pallas_flat (V cast to the block dtype once,
@@ -51,8 +52,11 @@
 //     Sums stay in registers; the row's last block is followed by stores of
 //     whole 32-byte sectors straight from the accumulator layout.
 // Float32 blocks (bsr_spmm_vres_f32), off every main path, keep a simple
-// design: one CTA per (block-row, 64-column D tile), the V column-blocks of
-// a step stacked in shared memory, fp32 FMA (full float32, no TF32).
+// design: one CTA per (block-row, 64-column D tile) on a one-dimensional
+// grid, the V column-blocks of a step stacked in shared memory, fp32 FMA
+// (full float32, no TF32).  Block shapes other than 128x128 go through the
+// flat kernel's generic tile (bsr_spmm_vres_generic_launch): V stays in
+// device memory and L2 without a residency hint.
 //
 // Variants of the bf16 path for experiments/bench_vres_parts.py (-D at
 // build time): VRES_STAGES=n ring depth; VRES_ONE_ITEM_PER_CTA one CTA per
@@ -466,13 +470,13 @@ bsr_spmm_vres_f32(const int* __restrict__ row_ptr,
                   const int* __restrict__ bcols,
                   const float* __restrict__ blocks,
                   const float* __restrict__ Vc, float* __restrict__ out,
-                  int G, int D) {
+                  int G, int D, int ndt) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Vs = reinterpret_cast<float*>(smem);   // [GC32*BC][DT]
   __shared__ float As[KC][128 + 1];
 
-  const int r = blockIdx.y;
-  const int d0 = blockIdx.x * DT;
+  const int64_t r = blockIdx.x / ndt;
+  const int d0 = (blockIdx.x % ndt) * DT;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int64_t ld = (int64_t)G * BC;
@@ -689,17 +693,33 @@ extern "C" {
 int bsr_spmm_vres_launch(const void* row_ptr, const void* bcols,
                          const void* blocks, const void* Vc, void* out,
                          int Kbr, int G, int D, void* stream) {
-  if (Kbr <= 0 || Kbr > 65535 || G <= 0 || D <= 0 || D % 8 != 0)
+  const int ndt = (D + DT - 1) / DT;
+  if (Kbr <= 0 || G <= 0 || D <= 0 || D % 8 != 0 ||
+      (long long)Kbr * ndt > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return launch_resident(bsr_spmm_vres_f32, SMEM32,
-                         dim3((D + DT - 1) / DT, Kbr), dim3(NT32),
+                         dim3((unsigned)((long long)Kbr * ndt)), dim3(NT32),
                          reinterpret_cast<cudaStream_t>(stream), Vc,
                          (size_t)Kbr * 128 * D * 4,
                          static_cast<const int*>(row_ptr),
                          static_cast<const int*>(bcols),
                          static_cast<const float*>(blocks),
                          static_cast<const float*>(Vc),
-                         static_cast<float*>(out), G, D);
+                         static_cast<float*>(out), G, D, ndt);
+}
+
+// Block shapes other than 128x128 (Br x Bc at run time): the contract of
+// the 128x128 paths through the flat kernel's generic tile (spmm_tile.cuh),
+// V read in float32 and rounded to the block dtype in the tile, with no
+// residency hint.  blk_dtype 0 = float32 blocks, 1 = bfloat16; out
+// [nrows, D] float32.  Returns the cudaError_t of the launch.
+int bsr_spmm_vres_generic_launch(const void* row_ptr, const void* bcols,
+                                 const void* blocks, int blk_dtype, int Br,
+                                 int Bc, const void* V, void* out, int Kbr,
+                                 int G, int D, void* stream) {
+  return spmm::launch_flat_generic(row_ptr, bcols, blocks, blk_dtype, Br, Bc,
+                                   V, out, Kbr, G, D,
+                                   reinterpret_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 blocks: Vc [nrows, ldv] bf16 (ldv a multiple of 8, columns past

@@ -390,4 +390,170 @@ __device__ __forceinline__ void ring_tile_bf16(
 // Output columns one bf16 CTA may cover (the instantiated N).
 #define SPMM_RING_COLS(X) X(8) X(16) X(32) X(48) X(64) X(96) X(128)
 
+// ---------------------------------------------------------------------------
+// Any block shape (generic_tile): the body of every (Br, Bc) that the fast
+// paths above do not take (128x128 ring and FMA tiles, 8x128 FMA tile),
+// with Br and Bc given at run time, float32 or bfloat16 blocks.
+//
+// One CTA owns out[r*Br + r0 : +min(128, Br - r0), d0 : d0+64]: a block-row
+// taller than 128 rows is split into 128-row chunks, each its own CTA.  The
+// CTA walks its row's slots j in [j0, j1) in order, skipping padding by the
+// rule of ring::next_real (a slot after the row's first at column-block 0
+// holds zeros), and for each slot stages [rows, KC] slices of A (transposed)
+// and the matching [KC, 64] slice of V, rounded to the block dtype, in
+// shared memory; the tail of a Bc that is not a multiple of KC is staged as
+// zeros past Bc.  fp32 FMA on the CUDA cores (no TF32).  Thread (ty, tx)
+// owns rows ty + 16*i (i < 8) and columns tx*4 .. +4, so a short block
+// (Br = 8, 16, 32) keeps its rows on the low thread rows.  The tile stays in
+// registers and is written once: no atomics, deterministic sums.
+// ---------------------------------------------------------------------------
+namespace gen {
+
+constexpr int NT = 256;
+constexpr int TX = DT / 4;      // 16 groups of 4 output columns
+constexpr int TY = NT / TX;     // 16 thread rows
+constexpr int RM = 128;         // output rows per CTA
+constexpr int RPT = RM / TY;    // 8 rows per thread
+
+}  // namespace gen
+
+template <typename T>
+__device__ __forceinline__ void generic_tile(
+    const int* __restrict__ bcols, const T* __restrict__ blocks,
+    const float* __restrict__ V, float* __restrict__ out, int64_t j0,
+    int64_t j1, int G, int Br, int Bc, int D, int64_t r, int r0, int d0) {
+  using namespace gen;
+  __shared__ float As[KC][RM + 1];
+  __shared__ __align__(16) float Vs[KC][DT];
+
+  const int tid = threadIdx.x;
+  const int ty = tid / TX, tx = tid % TX;
+  const int rows = min(RM, Br - r0);
+  const int64_t ld = (int64_t)G * Bc;   // row stride inside one step's slab
+
+  float acc[RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  for (int64_t j = j0; j < j1; j = ring::next_real(bcols, j, j1)) {
+    const int64_t s = j / G;
+    const T* a = blocks + (s * Br + r0) * ld + (j - s * G) * Bc;
+    const int64_t vrow0 = (int64_t)__ldg(bcols + j) * Bc;
+    for (int k0 = 0; k0 < Bc; k0 += KC) {
+      const int kn = min(KC, Bc - k0);
+      for (int idx = tid; idx < rows * KC; idx += NT) {
+        const int i = idx / KC, kk = idx % KC;
+        As[kk][i] = kk < kn ? to_f32(a[(int64_t)i * ld + k0 + kk]) : 0.f;
+      }
+      for (int idx = tid; idx < KC * DT; idx += NT) {
+        const int kk = idx / DT, c = idx % DT;
+        const int d = d0 + c;
+        Vs[kk][c] = kk < kn && d < D
+                        ? round_to<T>(V[(vrow0 + k0 + kk) * D + d])
+                        : 0.f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kn; ++kk) {
+        const float4 b = *reinterpret_cast<const float4*>(&Vs[kk][tx * 4]);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          if (ty + TY * i < rows) {
+            const float av = As[kk][ty + TY * i];
+            acc[i][0] = fmaf(av, b.x, acc[i][0]);
+            acc[i][1] = fmaf(av, b.y, acc[i][1]);
+            acc[i][2] = fmaf(av, b.z, acc[i][2]);
+            acc[i][3] = fmaf(av, b.w, acc[i][3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  const int dc = d0 + tx * 4;
+  if (dc < D) {   // D % 8 == 0, so a 4-column group is all in or all out
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int lr = ty + TY * i;
+      if (lr < rows) {
+        const int64_t row = r * Br + r0 + lr;
+        *reinterpret_cast<float4*>(&out[row * D + dc]) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+  }
+}
+
+// Work item of the generic launches: blockIdx.x = (block-row r, 128-row
+// chunk, 64-column D tile), row-major, so the chunks and D tiles of one
+// block-row are neighbours in the launch order (the second finds the row's
+// blocks in L2).  One-dimensional: any number of block-rows up to 2^31-1
+// items.
+struct GenericItem {
+  int64_t r;
+  int r0, d0;
+};
+
+__device__ __forceinline__ GenericItem generic_item(int nrc, int ndt) {
+  const int64_t idx = blockIdx.x;
+  const int64_t per_row = (int64_t)nrc * ndt;
+  GenericItem it;
+  it.r = idx / per_row;
+  const int rem = (int)(idx - it.r * per_row);
+  it.r0 = (rem / ndt) * gen::RM;
+  it.d0 = (rem % ndt) * DT;
+  return it;
+}
+
+// Flat block-CSR through the generic tile (bsr_spmm_flat.cu, and the
+// V-resident kernel's shapes other than 128x128).
+template <typename T>
+__global__ void __launch_bounds__(gen::NT)
+flat_generic(const int* __restrict__ row_ptr, const int* __restrict__ bcols,
+             const T* __restrict__ blocks, const float* __restrict__ V,
+             float* __restrict__ out, int G, int Br, int Bc, int D, int nrc,
+             int ndt) {
+  const GenericItem it = generic_item(nrc, ndt);
+  generic_tile<T>(bcols, blocks, V, out, (int64_t)row_ptr[it.r] * G,
+                  (int64_t)row_ptr[it.r + 1] * G, G, Br, Bc, D, it.r, it.r0,
+                  it.d0);
+}
+
+// Grid size of a generic launch (0 if it does not fit a 1-D grid).
+inline unsigned generic_grid(long long Kbr, int Br, int D) {
+  const long long items =
+      Kbr * ((Br + gen::RM - 1) / gen::RM) * ((D + DT - 1) / DT);
+  return items > 0 && items <= 0x7fffffffLL ? (unsigned)items : 0u;
+}
+
+// Launch of flat_generic: blk_dtype 0 = float32 blocks, 1 = bfloat16.
+// Returns the cudaError_t of the launch.
+inline int launch_flat_generic(const void* row_ptr, const void* bcols,
+                               const void* blocks, int blk_dtype, int Br,
+                               int Bc, const void* V, void* out, int Kbr,
+                               int G, int D, cudaStream_t st) {
+  const unsigned grid = generic_grid(Kbr, Br, D);
+  if (Kbr <= 0 || G <= 0 || Br <= 0 || Bc <= 0 || D <= 0 || D % 8 != 0 ||
+      grid == 0)
+    return (int)cudaErrorInvalidValue;
+  const int nrc = (Br + gen::RM - 1) / gen::RM, ndt = (D + DT - 1) / DT;
+  const int* rp = static_cast<const int*>(row_ptr);
+  const int* bc = static_cast<const int*>(bcols);
+  const float* v = static_cast<const float*>(V);
+  float* o = static_cast<float*>(out);
+  if (blk_dtype == 0)
+    flat_generic<float><<<grid, gen::NT, 0, st>>>(
+        rp, bc, static_cast<const float*>(blocks), v, o, G, Br, Bc, D, nrc,
+        ndt);
+  else if (blk_dtype == 1)
+    flat_generic<__nv_bfloat16><<<grid, gen::NT, 0, st>>>(
+        rp, bc, static_cast<const __nv_bfloat16*>(blocks), v, o, G, Br, Bc, D,
+        nrc, ndt);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace spmm

@@ -29,6 +29,45 @@ The dense path (``models/rounding.py``, ``env/env.py``) adds:
   direction redraws;
 * ``packet_loss(step, bler)``   — packet-loss evaluation ``step``'s
   Bernoulli(bler) draws (int32, on bler's device).
+
+The device rounding of the sparse state (``models/rounding_ell.py``) keeps
+its two routes' draws apart, as the JAX package does:
+
+* ``ell_batch_rv(attempt, Z_pad, D, dtype)`` — the batched route's attempt
+  slot vectors (JAX: ``split(key, nattempt)[attempt]``);
+* ``ell_batch_fill(Kp, Z)``     — its one fallback draw over all Kp users
+  (JAX: ``fold_in(key, 99)``);
+* ``ell_attempt(attempt)``      — a draws object for one attempt of the
+  sequential-retry and wavefront routes (JAX: ``fold_in(key, attempt)``),
+  read through
+* ``attempt_rv(Z_pad, D, dtype)`` — an attempt's slot vectors (JAX: the
+  attempt's own key) and
+* ``attempt_fill(Kp, Z)``       — its fallback draw (JAX: ``fold_in(key,
+  99)`` of the attempt's key).
+
+The ELL heuristics (``models/heuristics_ell.py``) draw from their own
+objects (JAX: ``PRNGKey(777)`` for MAX_GAIN/MAX_ASSO, ``PRNGKey(4242)``
+split in three for MAX_RAND):
+
+* ``score_fill(Kp, Z)``         — the score heuristics' fallback slots;
+* ``rand_order(base)``          — MAX_RAND's random permutation of the int
+  tensor ``base``;
+* ``rand_pref(Z_pad, Kp, dtype)`` — its uniform [0, 1) slot scores;
+* ``rand_fill(Kp, Z)``          — its fallback slots.
+
+The batched solves and probe searches (``parallel/batch.py``) derive draws
+objects from draws objects:
+
+* ``wave(w)``                   — wave (or probe round) ``w`` of a search
+  (JAX: ``fold_in(key, w)``);
+* ``scenario_solve(b, B)``      — instance ``b`` of ``B`` solved together
+  (JAX: ``split(key, B)[b]``);
+* ``scenario_round(b, B)``      — the dense rounding of candidate ``b`` of
+  ``B`` (JAX: ``split(fold_in(key, 1), B)[b]``);
+* ``candidate_round(attempt, cand, n)`` — rounding attempt ``attempt`` of
+  candidate ``cand`` of ``n`` on the sparse state, read through
+  ``attempt_rv`` and ``attempt_fill`` (JAX: ``split(fold_in(key, 1000 +
+  attempt), n)[cand]``).
 """
 
 from __future__ import annotations
@@ -51,6 +90,9 @@ def _mix(*words: int) -> int:
 
 _SKETCH, _OMEGA, _GAP, _ROUND, _FILL = range(5)
 _DENSE_RV, _DENSE_FILL, _LOC, _DIR, _MOB, _PCKL = range(5, 11)
+_ELL_BRV, _ELL_BFILL, _ELL_ATTEMPT, _ATTEMPT_RV, _ATTEMPT_FILL = range(11, 16)
+_SCORE_FILL, _RAND_ORDER, _RAND_PREF, _RAND_FILL = range(16, 20)
+_WAVE, _SCEN_SOLVE, _SCEN_ROUND, _CAND_ROUND = range(20, 24)
 
 
 class TorchDraws:
@@ -111,3 +153,56 @@ class TorchDraws:
     def packet_loss(self, step: int, bler: torch.Tensor) -> torch.Tensor:
         g = self._gen(_PCKL, step, device=bler.device)
         return torch.bernoulli(bler, generator=g).to(torch.int32)
+
+    def _randint(self, n: int, Z: int, *words: int) -> torch.Tensor:
+        return torch.randint(0, max(int(Z), 1), (n,),
+                             generator=self._gen(*words), dtype=torch.int32,
+                             device=self.device)
+
+    def ell_batch_rv(self, attempt: int, Z_pad: int, D: int,
+                     dtype) -> torch.Tensor:
+        return self._normal((Z_pad, D), dtype, _ELL_BRV, attempt)
+
+    def ell_batch_fill(self, Kp: int, Z: int) -> torch.Tensor:
+        return self._randint(Kp, Z, _ELL_BFILL)
+
+    def ell_attempt(self, attempt: int) -> "TorchDraws":
+        return self._child(_ELL_ATTEMPT, attempt)
+
+    def attempt_rv(self, Z_pad: int, D: int, dtype) -> torch.Tensor:
+        return self._normal((Z_pad, D), dtype, _ATTEMPT_RV)
+
+    def attempt_fill(self, Kp: int, Z: int) -> torch.Tensor:
+        return self._randint(Kp, Z, _ATTEMPT_FILL)
+
+    def score_fill(self, Kp: int, Z: int) -> torch.Tensor:
+        return self._randint(Kp, Z, _SCORE_FILL)
+
+    def rand_order(self, base: torch.Tensor) -> torch.Tensor:
+        perm = torch.randperm(base.shape[0], generator=self._gen(_RAND_ORDER),
+                              device=self.device)
+        return base[perm]
+
+    def rand_pref(self, Z_pad: int, Kp: int, dtype) -> torch.Tensor:
+        return torch.rand((Z_pad, Kp), generator=self._gen(_RAND_PREF),
+                          dtype=dtype, device=self.device)
+
+    def rand_fill(self, Kp: int, Z: int) -> torch.Tensor:
+        return self._randint(Kp, Z, _RAND_FILL)
+
+    def _child(self, *words: int) -> "TorchDraws":
+        return TorchDraws(self.seed, self.device,
+                          stream=_mix(self.stream, *words))
+
+    def wave(self, w: int) -> "TorchDraws":
+        return self._child(_WAVE, w)
+
+    def scenario_solve(self, b: int, B: int) -> "TorchDraws":
+        return self._child(_SCEN_SOLVE, b)
+
+    def scenario_round(self, b: int, B: int) -> "TorchDraws":
+        return self._child(_SCEN_ROUND, b)
+
+    def candidate_round(self, attempt: int, cand: int,
+                        n: int) -> "TorchDraws":
+        return self._child(_CAND_ROUND, attempt, cand)

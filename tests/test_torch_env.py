@@ -49,3 +49,31 @@ def test_evaluate_bler_matches_jax(kw):
     got = te.evaluate_bler(z, Z, **kw)
     assert got.shape == (K,)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-300)
+
+
+def test_evaluate_bler_reuses_geometry_exactly():
+    """One environment evaluated several times (full and in-graph channel,
+    other z and Z) keeps its z-independent parts and gives the same bits as
+    a fresh environment, and JAX's values; a geometry of other users is
+    refused."""
+    from sig_sdp_mmw_torch.env.large import (ap_grid, evaluate_sinr_sparse,
+                                             sparse_eval_geometry)
+
+    je, te = JLargeEnv(10, seed=2), TLargeEnv(10, seed=2)
+    rng = np.random.default_rng(1)
+    calls = [(12, {}), (12, dict(eval_min_ratio=0.1, tail_correction=False)),
+             (9, {}), (12, {})]
+    for Z, kw in calls:
+        z = rng.integers(0, Z, te.K)
+        got = te.evaluate_bler(z, Z, **kw)
+        np.testing.assert_array_equal(
+            got, TLargeEnv(10, seed=2).evaluate_bler(z, Z, **kw))
+        np.testing.assert_allclose(
+            got, np.asarray(je.evaluate_bler(z, Z, **kw), np.float64),
+            rtol=1e-6, atol=1e-300)
+    p, aps = te.params, ap_grid(te.params)
+    other = te.sta_locs.copy()
+    with pytest.raises(ValueError, match="other users"):
+        evaluate_sinr_sparse(other, aps, p, z, 12,
+                             geometry=sparse_eval_geometry(te.sta_locs, aps,
+                                                           p))

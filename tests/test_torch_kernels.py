@@ -33,8 +33,9 @@ def test_flat_kernel_refuses_what_it_cannot_take(rand512):
     sq = tb.bsr_flat_from_csr(rand512, block=128, group=4)
     V = torch.zeros((512, 32))
     assert tb.flat_kernel_unsupported(sq, V) is None
-    narrow = tb.bsr_flat_from_csr(rand512, block=(8, 128), group=4)
-    assert "128x128" in tb.flat_kernel_unsupported(narrow, V)
+    for block in ((8, 128), (16, 128), 64, 16):   # the generic tile's shapes
+        other = tb.bsr_flat_from_csr(rand512, block=block, group=4)
+        assert tb.flat_kernel_unsupported(other, V) is None
     f64 = tb.bsr_flat_from_csr(rand512, block=128, group=4,
                                dtype=torch.float64)
     assert "float32 or bfloat16" in tb.flat_kernel_unsupported(f64, V)
@@ -88,10 +89,9 @@ def test_ell_kernel_refuses_what_it_cannot_take(rand512):
     assert tb.ell_kernel_unsupported(sq, V) is None
     assert tb.ell_kernel_unsupported(tb.bcsr_from_csr(rand512, block=(8, 128)),
                                      V) is None
-    odd = tb.bcsr_from_csr(rand512, block=(16, 128))
-    assert "128x128 or 8x128" in tb.ell_kernel_unsupported(odd, V)
-    narrow = tb.bcsr_from_csr(rand512, block=64)
-    assert "128x128 or 8x128" in tb.ell_kernel_unsupported(narrow, V)
+    for block in ((16, 128), 64, 16, (32, 64)):   # the generic tile's shapes
+        other = tb.bcsr_from_csr(rand512, block=block)
+        assert tb.ell_kernel_unsupported(other, V) is None
     f64 = tb.bcsr_from_csr(rand512, block=128, dtype=torch.float64)
     assert "float32 or bfloat16" in tb.ell_kernel_unsupported(f64, V)
     assert "V must be float32" in tb.ell_kernel_unsupported(sq, V.double())
@@ -366,4 +366,85 @@ def test_vres_kernel_on_long_and_many_rows_on_cuda(Kbr, G, D, dt):
     assert torch.equal(got, tb.bsr_spmm_vres(mat, V))
     assert not got[128:256].any()
     want = tb.bsr_spmm_flat_reference(mat, V)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# Block shapes of the generic tile: Br in 8..128 by Bc in 16..128, the
+# square 16/32/64 blocks, a block taller than one CTA's 128 rows (split into
+# row chunks) and a shape whose Bc is not a multiple of the staged 32-deep
+# slice.  128x128 (every kernel) and 8x128 (block-ELL) keep their own paths.
+GENERIC_SHAPES = [(8, 128), (16, 128), (32, 128), (64, 128), (8, 16),
+                  (16, 16), (32, 32), (64, 64), (128, 16), (16, 64),
+                  (256, 32), (24, 40)]
+
+
+def _generic_case(kind, block, dt, G=4):
+    S, Q, _ = generate_large_state_csr(10, 75e-4, seed=2)
+    St = build_st_csr(S, Q)
+    if kind == "ell":
+        mat = tb.bcsr_from_csr(St, block=block, dtype=dt, device="cuda")
+        return mat, tb.bcsr_spmm, tb.bcsr_spmm_reference
+    mat = tb.bsr_flat_from_csr(St, block=block, group=G, dtype=dt,
+                               device="cuda")
+    kernel = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
+    return mat, kernel, tb.bsr_spmm_flat_reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1, 20, 48, 128])
+@pytest.mark.parametrize("block", GENERIC_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in GENERIC_SHAPES])
+@pytest.mark.parametrize("kind", ["flat", "ell", "vres"])
+def test_generic_tile_matches_reference_on_cuda(kind, block, D, dt):
+    """The generic tile of the three kernels against their plain versions
+    on the card, at every block shape the fast paths do not take: to 1e-5
+    of max|out|, two launches bitwise equal, counted as generic launches
+    (except 8x128 on the block-ELL kernel, its own FMA path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mat, kernel, plain = _generic_case(kind, block, getattr(torch, dt))
+    V = torch.randn((mat.nrows, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4))
+    n0, g0 = kernel.launches, kernel.generic_launches
+    got = kernel(mat, V)
+    assert torch.equal(got, kernel(mat, V)) and got.shape == (mat.nrows, D)
+    assert kernel.launches == n0 + 2
+    own_path = kind == "ell" and block == (8, 128)
+    assert kernel.generic_launches == g0 + (0 if own_path else 2)
+    want = plain(mat, V)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _long_operand(K, seed=5):
+    """K x K banded CSR, three entries per row near the diagonal."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(K), 3)
+    cols = np.clip(rows + rng.integers(-40, 41, rows.size), 0, K - 1)
+    return scipy.sparse.csr_matrix((rng.standard_normal(rows.size),
+                                    (rows, cols)), shape=(K, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "vres", "ell"])
+def test_generic_tile_takes_more_than_65535_block_rows_on_cuda(kind):
+    """8-row blocks of a K = 600,000 operand: 75,000 block-rows, past the
+    65,535 a grid's second dimension holds; against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M = _long_operand(600_000)
+    if kind == "ell":
+        mat = tb.bcsr_from_csr(M, block=(8, 128), dtype=torch.bfloat16,
+                               device="cuda")
+        kernel, plain = tb.bcsr_spmm, tb.bcsr_spmm_reference
+        assert mat.Kb > 65535
+    else:
+        mat = tb.bsr_flat_from_csr(M, block=(8, 128), group=2,
+                                   dtype=torch.bfloat16, device="cuda")
+        kernel = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
+        plain = tb.bsr_spmm_flat_reference
+        assert mat.Kbr > 65535
+    V = torch.randn((mat.nrows, 48), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    got, want = kernel(mat, V), plain(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -137,7 +137,9 @@ def test_ell_state_matches_jax(state):
 
 def test_mmwell_pins_sketch_width_and_needs_prepare(state):
     """The first probe pins (D_pad, rank_pad); a smaller later Z reuses it;
-    a solve or rounding without prepare() is refused."""
+    a solve, or a native rounding, without prepare() is refused.  The
+    device rounding (the default) needs no host state and pins its Z_pad
+    the same way."""
     S, Q, h, _ = state
     ell = tell.ell_from_scipy(S, Q, h)
     alg = MMWEll(nit=2, eta=0.05, use_bcsr=True, lanczos_m=8)
@@ -150,4 +152,9 @@ def test_mmwell_pins_sketch_width_and_needs_prepare(state):
     assert X.shape == (ell.Kp, 128) and alg._pinned[1:] == (128, 128)
     other = tell.ell_from_scipy(S, Q, h)
     with pytest.raises(RuntimeError, match="prepare"):
-        alg.rounding(12, X, other)
+        MMWEll(nit=2, eta=0.05, rounding="native").rounding(12, X, other)
+    alg.rounding(40, X, ell, nattempt=1)
+    alg.rounding(12, X, ell, nattempt=1)
+    assert alg._pinned_zpad[1] == 64 and alg.rounding_info[-1]["route"] == "batch"
+    with pytest.raises(ValueError, match="rounding must be"):
+        MMWEll(rounding="host")

@@ -52,13 +52,21 @@ def test_slice_is_feasible_and_went_through_flat_spmm(port_run):
 
 
 def test_slice_record_has_the_jax_tool_keys(port_run):
+    """Every key of the JAX tool's record, the heuristic rows included
+    (each with the JAX row's keys, its verdict consistent with its rem),
+    and the device rounding on the batched route at this Kp."""
     rec, _, out = port_run
     with open(os.path.join(REPO, "E2E_LARGE.json")) as f:
         jax_rec = json.load(f)
-    heuristics = {"mgain", "mrand"}
-    assert set(jax_rec) - heuristics <= set(rec)
+    assert set(jax_rec) <= set(rec)
     assert (set(jax_rec["tail_decomposition"]) - {"note"}
             <= set(rec["tail_decomposition"]))
+    for name in ("mgain", "mrand"):
+        assert set(jax_rec[name]) <= set(rec[name])
+        assert rec[name]["rem"] > 0 or rec[name]["verified_feasible"]
+    assert rec["rounding"] == "device" and rec["search_mode"] == "binary"
+    assert [r["route"] for r in rec["rounding_info"]] == \
+        ["batch"] * rec["n_probes"]
     with open(out) as f:
         assert json.load(f)["Z_fin"] == rec["Z_fin"]
     assert os.path.exists(out.replace(".json", "_assignment.npz"))
@@ -95,7 +103,10 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.ops.kernels,"
             " sig_sdp_mmw_torch.experiments.sim_mmw_time,"
             " sig_sdp_mmw_torch.experiments.profile_iteration,"
-            " sig_sdp_mmw_torch.env.mob, sig_sdp_mmw_torch.models.rounding; "
+            " sig_sdp_mmw_torch.env.mob, sig_sdp_mmw_torch.models.rounding,"
+            " sig_sdp_mmw_torch.models.rounding_ell,"
+            " sig_sdp_mmw_torch.models.heuristics_ell,"
+            " sig_sdp_mmw_torch.parallel.batch; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
@@ -113,3 +124,17 @@ def test_port_sources_name_no_jax():
         with open(path) as f:
             for n, line in enumerate(f, 1):
                 assert not bad.match(line), f"{path}:{n}: {line.strip()}"
+
+
+def test_slice_speculative_search_on_generic_blocks(port_run):
+    """search="speculative" on 16x16 blocks (the kernels' generic tile on
+    the card): rem 0, verified, within 1 of the binary search's Z, with the
+    waves and their candidates recorded."""
+    rec = e2e_main(cell=10, nit=NIT, block=16, flat_group=4, device="cpu",
+                   search="speculative", wave=4)
+    assert rec["remainder"] == 0 and rec["verified_feasible"]
+    assert rec["search_mode"] == "speculative(wave=4)"
+    assert abs(rec["Z_fin"] - port_run[0]["Z_fin"]) <= 1
+    assert rec["n_waves"] == len(rec["wave_rows"]) >= 1
+    assert rec["n_probes"] == len(rec["probe_Z"]) == sum(
+        r["candidates"] for r in rec["wave_rows"])

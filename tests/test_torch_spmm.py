@@ -99,3 +99,29 @@ def test_row_chunk_matches_unchunked(rand512, block, chunk):
         gotT, np.asarray(jb.bcsr_spmm_transpose(j.bcols, j.blocks, Vj,
                                                 row_chunk=chunk)),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("block", [(8, 128), (16, 128), (16, 16)])
+def test_generic_shape_references_match_jax(block, dt):
+    """The plain versions at block shapes the kernels' generic tile takes on
+    the card, against the JAX package on the same inputs: bcsr_spmm_reference
+    vs bcsr_spmm and bsr_spmm_flat_reference vs bsr_spmm_pallas_flat
+    (interpret mode), K=256, D=24.  (On the card the generic tile is held to
+    these plain versions, tests/test_torch_kernels.py.)"""
+    jd, td = _DT[dt]
+    M = scipy.sparse.random(256, 256, density=0.03, random_state=5,
+                            format="csr")
+    V = np.random.default_rng(6).standard_normal((256, 24)).astype(
+        np.float32)
+    j = jb.bcsr_from_csr(M, block=block, pad_rows_to=256, dtype=jd)
+    want = np.asarray(jb.bcsr_spmm(j, jnp.asarray(V)))
+    t = tb.bcsr_from_csr(M, block=block, pad_rows_to=256, dtype=td)
+    got = tb.bcsr_spmm_reference(t, torch.from_numpy(V)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    jf = jb.bsr_flat_from_csr(M, block=block, group=4, dtype=np.dtype(jd))
+    want = np.asarray(jb.bsr_spmm_pallas_flat(jf, jnp.asarray(V),
+                                              interpret=True))
+    tf = tb.bsr_flat_from_csr(M, block=block, group=4, dtype=td)
+    got = tb.bsr_spmm_flat_reference(tf, torch.from_numpy(V)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -50,9 +50,11 @@ def to_torch(x):
 
 class JaxDraws:
     """The draws of ``sig_sdp_mmw_tpu`` for one solve (``mmw_solve`` /
-    ``mmw_solve_ell``'s ``key``) or one rounding (``rounding_native_csr``'s
-    or the dense ``rounding``'s ``key``; ``nattempt`` for the latter), by
-    role, on the JAX package's key schedule."""
+    ``mmw_solve_ell``'s ``key``), one rounding (``rounding_native_csr``'s,
+    ``rounding_ell``'s or the dense ``rounding``'s ``key``; ``nattempt`` for
+    the batched ones), one heuristic (``PRNGKey(777)``, ``PRNGKey(4242)``)
+    or one probe search (``fold_in(PRNGKey(seed), ncall)``), by role, on the
+    JAX package's key schedule."""
 
     def __init__(self, key, nit: int = 0, nattempt: int = 10):
         self.key = key
@@ -90,3 +92,54 @@ class JaxDraws:
         k = jax.random.fold_in(self.key, 99)
         return to_torch(jax.random.randint(k, (Kp,), 0, max(int(Z), 1),
                                            jnp.int32))
+
+    def _randint(self, k, n, Z):
+        return to_torch(jax.random.randint(k, (n,), 0, max(int(Z), 1),
+                                           jnp.int32))
+
+    def ell_batch_rv(self, attempt, Z_pad, D, dtype):
+        return self.dense_rounding_rv(attempt, Z_pad, D, dtype)
+
+    def ell_batch_fill(self, Kp, Z):
+        return self.dense_fill(Kp, Z)
+
+    def ell_attempt(self, attempt):
+        return self._child(jax.random.fold_in(self.key, attempt))
+
+    def attempt_rv(self, Z_pad, D, dtype):
+        return self._normal(self.key, (Z_pad, D), dtype)
+
+    def attempt_fill(self, Kp, Z):
+        return self._randint(jax.random.fold_in(self.key, 99), Kp, Z)
+
+    def score_fill(self, Kp, Z):
+        return self._randint(self.key, Kp, Z)
+
+    def rand_order(self, base):
+        k1 = jax.random.split(self.key, 3)[0]
+        return to_torch(jax.random.permutation(k1, jnp.asarray(base.numpy())))
+
+    def rand_pref(self, Z_pad, Kp, dtype):
+        # JAX's default float dtype, as MAX_RAND_ELL draws them.
+        k2 = jax.random.split(self.key, 3)[1]
+        return to_torch(jax.random.uniform(k2, (Z_pad, Kp)))
+
+    def rand_fill(self, Kp, Z):
+        return self._randint(jax.random.split(self.key, 3)[2], Kp, Z)
+
+    def _child(self, k):
+        return JaxDraws(k, self.nit, self.nattempt)
+
+    def wave(self, w):
+        return self._child(jax.random.fold_in(self.key, w))
+
+    def scenario_solve(self, b, B):
+        return self._child(jax.random.split(self.key, B)[b])
+
+    def scenario_round(self, b, B):
+        return self._child(jax.random.split(jax.random.fold_in(self.key, 1),
+                                            B)[b])
+
+    def candidate_round(self, attempt, cand, n):
+        return self._child(jax.random.split(
+            jax.random.fold_in(self.key, 1000 + attempt), n)[cand])
