@@ -26,16 +26,26 @@
      the SpMM bench entry point (sig_sdp_mmw_torch/experiments/
      bench_flat_spmm.py) at G=8 and G=32, which also runs the ELL and flat
      kernels on that operand;
-   * the generic tile (block shapes without a fast path), at D=48 on the
-     same S̃: flat at 8x128 (bf16 and float32), 16x128 and 32x32 (bf16);
-     block-ELL at 16x128, 16x16 and 32x32 (bf16); V-resident at 8x128
-     (bf16); and the K=1,009,200 S̃ as flat 8x128 bf16 blocks, G=8, D=16
-     (126,160 block-rows), each counted as a generic launch;
+   * block shapes without a 128x128 fast path (bf16: the short-block
+     tensor-core tile; float32: the generic FMA tile), at D=48 on the same
+     S̃: flat at 8x128 (bf16 and float32), 16x128, 32x32 and 8x8 (bf16);
+     block-ELL at 8x128, 16x128, 16x16 and 32x32 (bf16); V-resident at
+     8x128 (bf16); the K=1,009,200 S̃ as flat 8x128 bf16 blocks, G=8, D=16
+     (126,160 block-rows); the mid-K path's own operands (phase 6's cell
+     40 from bcsr_operands_from_state, 32x32 bf16 blocks): S̃ through the
+     flat kernel and through the block-ELL kernel at D=128 (the solver's
+     D_pad) and D=8 (the gap log's D=1 padded), and Q through the
+     block-ELL kernel at D=128; each counted as a generic launch, with
+     the V bytes the tile gathers per real block
+     (bench_flat_spmm.v_gather_bytes); and the block-height comparison:
+     the 100k S̃ as flat 8x128 bf16 against the 128x128 ring tile at D=48
+     and D=128 (measured only; every main path keeps 128x128);
    * the yardstick PyTorch call (bench_flat_spmm.library_spmm: a BSR tensor
-     of the real blocks @ V, in the block dtype where PyTorch runs it, else
-     float32), with the device kernels the profiler saw it run, for the
-     main-path products, the float32 cases, the V-resident cases and the
-     generic shapes.  The port never calls it.
+     of the real blocks @ V, or, where PyTorch refuses non-square blocks, a
+     CSR tensor of their entries @ V; in the block dtype where PyTorch runs
+     it, else float32), with the device kernels the profiler saw it run,
+     for the main-path products, the float32 cases, the V-resident cases
+     and the other block shapes.  The port never calls it.
 3. The 100k path: the block-sparse pipeline of
    sig_sdp_mmw_torch/experiments/e2e_large.py on cell 183 (K=100,467; bf16
    blocks, stored transpose, flat_group=8, nit=150, eta=0.05, 10 rounding
@@ -170,8 +180,8 @@ def compare(name, mat, V, kernel, plain, iters=20, library=False):
         f"{rec['bound_ms'] / ms:.3f}")
     if library:
         rec.update(library_spmm(mat, V, iters))
-        log(f"[2 library] {name}: {rec['library_ms']} ms in "
-            f"{rec['library_dtype']}, kernels {rec['library_kernels']}, "
+        log(f"[2 library] {name}: {rec['library_call']} {rec['library_ms']} "
+            f"ms in {rec['library_dtype']}, kernels {rec['library_kernels']}, "
             f"refused {rec['library_refused']}")
     return rec
 
@@ -531,13 +541,14 @@ def main() -> int:
         """The association operator Q: its block layout from the operand
         builder, random edge values scattered as the solver does."""
         Kbr, maxblkQ = ops.q_bcols.shape
-        qvals = torch.zeros(Kbr * 128 * maxblkQ * 128, dtype=torch.bfloat16,
+        Br, Bc = ops.s_blocks.Brow, ops.s_blocks.B
+        qvals = torch.zeros(Kbr * Br * maxblkQ * Bc, dtype=torch.bfloat16,
                             device="cuda")
         evals = torch.randn((int(ops.q_eidx.max()) + 1,), generator=gen,
                             device="cuda")
         qvals[ops.q_pos] = evals[ops.q_eidx].to(torch.bfloat16)
         return tb.BlockEll(bcols=ops.q_bcols,
-                           blocks=qvals.reshape(Kbr, 128, maxblkQ, 128),
+                           blocks=qvals.reshape(Kbr, Br, maxblkQ, Bc),
                            nrows=ops.s_blocks.nrows)
 
     check_flat("S~", St, torch.bfloat16, (32, 48, 64, 128), library=(48, 128),
@@ -570,51 +581,82 @@ def main() -> int:
         del mat
     torch.cuda.empty_cache()
 
-    # The generic tile: block shapes without a fast path, on the same S̃.
+    # Block shapes without a 128x128 fast path, on the same S̃.
     generic = {name: [] for name in REPLACES}
 
-    def check_generic(kind, csr, block, dt, D=GENERIC_D, iters=20):
-        Br, Bc = block
+    def check_generic(kind, mat, D=GENERIC_D, iters=20, op="100k S~"):
+        Br, Bc = (mat.Brow, mat.B) if kind == "ell" else (mat.Br, mat.Bc)
+        dt = mat.blocks.dtype
         dname = str(dt).split(".")[-1]
-        if kind == "ell":
-            mat = tb.bcsr_from_csr(csr, block=block, dtype=dt, device="cuda")
-            fn, plain, key = tb.bcsr_spmm, tb.bcsr_spmm_reference, \
-                "bcsr_spmm_ell"
-            shape = f"Kbr={mat.Kb} maxblk={mat.bcols.shape[1]}"
-        else:
-            mat = tb.bsr_flat_from_csr(csr, block=block, group=GROUP,
-                                       dtype=dt, device="cuda")
-            fn = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
-            plain, key = tb.bsr_spmm_flat_reference, f"bsr_spmm_{kind}"
-            shape = f"Kbr={mat.Kbr} steps={mat.nsteps}x{mat.G}"
+        fn, plain = bench_flat_spmm.spmm_pair(kind)
+        key = "bcsr_spmm_ell" if kind == "ell" else f"bsr_spmm_{kind}"
+        shape = (f"Kbr={mat.Kb} maxblk={mat.bcols.shape[1]}" if kind == "ell"
+                 else f"Kbr={mat.Kbr} steps={mat.nsteps}x{mat.G}")
         V = randn(mat.nrows, D)
-        name = f"generic {kind} {Br}x{Bc} {dname} D={D}"
+        route = tb.spmm_route(kind, Br, Bc, dt)
+        name = f"{route} {kind} {op} {Br}x{Bc} {dname} D={D}"
         log(f"[2 generic] {name}: {shape}")
         g0 = fn.generic_launches
         rec = compare(name, mat, V, lambda: fn(mat, V), lambda: plain(mat, V),
                       iters=iters, library=True)
         if fn.generic_launches <= g0:
             raise AssertionError(f"{name} did not go through the generic "
-                                 "tile")
+                                 "launches")
+        gather = bench_flat_spmm.v_gather_bytes(mat, D)
+        moved = rec["bytes_needed"] - 2 * mat.nrows * D * 4 + gather
+        log(f"[2 generic] {name}: V gathered {gather / 1e6:.1f} MB, blocks + "
+            f"V gathered {moved / 1e6:.1f} MB at {moved / rec['ms'] / 1e9:.3f}"
+            f" TB/s")
         generic[key].append(dict(
-            shape=f"{Br}x{Bc}", dtype=dname, D=D, rows=mat.nrows,
-            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            operand=op, shape=f"{Br}x{Bc}", dtype=dname, route=route, D=D,
+            rows=mat.nrows, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], share=rec["bound_ms"] / rec["ms"],
-            library_ms=rec["library_ms"],
+            v_gather_bytes=gather, library_ms=rec["library_ms"],
+            library_call=rec["library_call"],
             library_dtype=rec["library_dtype"]))
-        del mat, V
+        del V
         torch.cuda.empty_cache()
         return generic[key][-1]
 
+    def check_shape(kind, csr, block, dt=torch.bfloat16, dims=(GENERIC_D,),
+                    iters=20, op="100k S~"):
+        mat = bench_flat_spmm.shape_operand(kind, csr, block, dt, GROUP)
+        recs = [check_generic(kind, mat, D, iters, op) for D in dims]
+        del mat
+        return recs
+
     t0 = time.time()
-    for block, dt in (((8, 128), torch.bfloat16), ((8, 128), torch.float32),
-                      ((16, 128), torch.bfloat16), ((32, 32), torch.bfloat16)):
-        check_generic("flat", St, block, dt)
-    for block in ((16, 128), (16, 16), (32, 32)):
-        check_generic("ell", St, block, torch.bfloat16)
-    check_generic("vres", St, (8, 128), torch.bfloat16)
+    short48, short128 = check_shape("flat", St, (8, 128), dims=(48, 128))
+    check_shape("flat", St, (8, 128), torch.float32)
+    for block in ((16, 128), (32, 32), (8, 8)):
+        check_shape("flat", St, block)
+    for block in ((8, 128), (16, 128), (16, 16), (32, 32)):
+        check_shape("ell", St, block)
+    check_shape("vres", St, (8, 128))
+    # Block height on the 100k S̃ (queue 2's item 5), measured only.
+    for D, short in ((48, short48), (128, short128)):
+        ring = cases[f"flat S~ bfloat16 D={D}"]
+        log(f"[2 height] 100k S~ flat bf16 D={D}: 8x128 short tile "
+            f"{short['ms']:.4f} ms (bound {short['bound_ms']:.4f}), 128x128 "
+            f"ring tile {ring['ms']:.4f} ms (bound {ring['bound_ms']:.4f})")
     log(f"[2 generic] 100k shapes [{time.time() - t0:.1f}s]")
+
+    # The mid-K path's own operands (phase 6): cell 40 at 32x32 bf16 blocks
+    # from bcsr_operands_from_state as the path makes them, S̃ through the
+    # flat kernel and S̃ and Q through the block-ELL kernel, at the solver's
+    # D_pad of 128 and at D=8, the gap log's D=1 padded.
+    t0 = time.time()
+    Sm, Qm, _ = LargeEnv(MIDK_CELL, RHO, seed=SEED).generate_state_csr()
+    ops = tb.bcsr_operands_from_state(
+        Sm, Qm, block=MIDK_BLOCK, dtype=torch.bfloat16, store_transpose=True,
+        flat_group=GROUP, device="cuda")
+    for D in (128, 8):
+        check_generic("flat", ops.s_flat, D, op="midK S~")
+        check_generic("ell", ops.s_blocks, D, op="midK S~")
+    check_generic("ell", q_operator(ops), 128, op="midK Q")
+    del Sm, Qm, ops
+    log(f"[2 generic] mid-K shapes [{time.time() - t0:.1f}s]")
 
     # Kernel #2 on its path, the SpMM bench entry point (its vres runs are
     # checked against the plain version inside).
@@ -654,7 +696,8 @@ def main() -> int:
     # dimension.  D=16 keeps the plain version's gathered V (one [128, D]
     # float32 slice per slot, 1.0M slots) at 8 GB.
     t0 = time.time()
-    r = check_generic("flat", St1, (8, 128), torch.bfloat16, D=16, iters=5)
+    r, = check_shape("flat", St1, (8, 128), dims=(16,), iters=5,
+                     op="1M S~")
     if r["rows"] // 8 <= 65535:
         raise AssertionError(f"million-link 8x128 operand has only "
                              f"{r['rows'] // 8} block-rows")

@@ -22,9 +22,20 @@ The bound counts only what these inputs need (:func:`bytes_needed`): the
 real blocks, not the padding slots, V read once in float32 and the output
 written once in float32.  :func:`library_spmm` is the yardstick PyTorch
 call for the same product (``torch.sparse_bsr_tensor(...) @ V`` on the real
-blocks); the port never calls it.
+blocks, or ``torch.sparse_csr_tensor(...) @ V`` on their entries where the
+BSR product refuses the block shape); the port never calls it.
+
+:func:`shapes` (``--shapes``) times one kernel call per case of
+``SHAPE_CASES`` on S̃ of the same instance: each case checks two launches
+bitwise equal and the kernel against its plain version, and prints one JSON
+line with its time, bound and share, and the V bytes the tile gathers.  It
+uses only wrapper functions that predate the short-block tile, so this file
+also times an older checkout, for an A/B of two trees in one call:
 
     python -m sig_sdp_mmw_torch.experiments.bench_flat_spmm --out bench.json
+    python -m sig_sdp_mmw_torch.experiments.bench_flat_spmm --shapes \
+        --out shapes.json
+    (cd OLD && PYTHONPATH=. python /path/to/bench_flat_spmm.py --shapes)
 """
 
 from __future__ import annotations
@@ -112,6 +123,15 @@ def bytes_needed(mat, D: int) -> int:
     return nblk * Br * Bc * mat.blocks.element_size() + 2 * mat.nrows * D * 4
 
 
+def v_gather_bytes(mat, D: int) -> int:
+    """Bytes of V a tile gathers for ``mat @ V`` when it reads the
+    [Bc, D] slice of V in the block dtype once for each real block: from L2
+    (or L1) rather than device memory on a banded operand, so not part of
+    :func:`bound`; what a short block pays beyond its own bytes."""
+    Bc = _block_shape(mat)[1]
+    return int(real_slots(mat).sum()) * Bc * D * mat.blocks.element_size()
+
+
 def block_height_bytes(csr, heights=(8, 16, 32, 64, 128),
                        itemsize=2) -> dict:
     """Real-block bytes of a [Br, 128]-blocked operand of the scipy matrix
@@ -159,32 +179,167 @@ def library_operand(mat, dtype) -> torch.Tensor:
                                    size=(mat.nrows, mat.nrows))
 
 
+def library_csr_operand(mat, dtype) -> torch.Tensor:
+    """``mat`` as a ``torch.sparse_csr_tensor`` of every entry of its real
+    blocks, the zeros inside a block included (a CSR matrix with the
+    block's dense pattern), in ``dtype``: the operand of the yardstick for
+    block shapes the BSR product refuses."""
+    from sig_sdp_mmw_torch.ops.bcsr import BlockEll
+
+    mask = real_slots(mat)
+    Br, Bc = _block_shape(mat)
+    dev = mask.device
+    if isinstance(mat, BlockEll):
+        vals = mat.blocks.permute(0, 2, 1, 3)[mask]
+        brow = torch.nonzero(mask)[:, 0]
+        Kbr = mat.Kb
+    else:
+        vals = mat.blocks.reshape(mat.nsteps, mat.Br, mat.G, mat.Bc).permute(
+            0, 2, 1, 3).reshape(-1, mat.Br, mat.Bc)[mask]
+        brow = mat.brows.long().repeat_interleave(mat.G)[mask]
+        Kbr = mat.Kbr
+    bcol = mat.bcols[mask].long()
+    # Real blocks are in (block-row, column-block) order: entry (b, i, k)
+    # of block b, the t-th of its block-row, lies at row brow*Br + i after
+    # the row's first t blocks.
+    counts = torch.bincount(brow, minlength=Kbr)
+    start = torch.cumsum(counts, 0) - counts
+    t = torch.arange(brow.shape[0], device=dev) - start[brow]
+    i = torch.arange(Br, device=dev)
+    k = torch.arange(Bc, device=dev)
+    pos = ((start[brow] * Br * Bc + t * Bc)[:, None, None]
+           + i[None, :, None] * (counts[brow] * Bc)[:, None, None]
+           + k[None, None, :]).reshape(-1)
+    nnz = pos.shape[0]
+    itype = torch.int32 if nnz < 2 ** 31 else torch.int64
+    values = torch.empty(nnz, dtype=dtype, device=dev)
+    values[pos] = vals.reshape(-1).to(dtype)
+    cols = torch.empty(nnz, dtype=itype, device=dev)
+    cols[pos] = (bcol[:, None, None] * Bc + k[None, None, :]).expand(
+        -1, Br, -1).reshape(-1).to(itype)
+    del pos, vals
+    crow = torch.zeros(mat.nrows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum((counts * Bc).repeat_interleave(Br), 0)
+    return torch.sparse_csr_tensor(crow.to(itype), cols, values,
+                                   size=(mat.nrows, mat.nrows))
+
+
 def library_spmm(mat, V: torch.Tensor, iters: int) -> dict:
     """Time of the yardstick PyTorch call for ``mat @ V``: the BSR tensor of
-    the real blocks times V, in the block dtype of ``mat`` when PyTorch runs
-    that on the card, else in float32; with the dtype used, the kernels the
-    profiler saw, and why a dtype was refused.  ``library_ms`` is None when
-    none runs."""
+    the real blocks times V (``library_call`` "bsr"), in the block dtype of
+    ``mat`` when PyTorch runs that on the card, else in float32; where
+    PyTorch refuses the BSR product in both (blocks that are not square),
+    the CSR tensor of the real blocks' entries times V ("csr", cuSPARSE's
+    SpMM), in the same order of dtypes.  With the dtype used, the kernels
+    the profiler saw, and why each call and dtype was refused.
+    ``library_ms`` is None when none runs."""
     from sig_sdp_mmw_torch.experiments.profile_iteration import profile
 
-    rec = {"library_ms": None, "library_dtype": None, "library_kernels": [],
-           "library_refused": {}}
-    for dt in dict.fromkeys((mat.blocks.dtype, torch.float32)):
-        try:
-            A = library_operand(mat, dt)
-            Vl = V.to(dt)
-            fn = lambda: A @ Vl   # noqa: E731
-            fn()
-            torch.cuda.synchronize()
-        except (RuntimeError, NotImplementedError) as e:
-            rec["library_refused"][str(dt)] = str(e).splitlines()[0][:200]
-            continue
-        rec.update(library_ms=time_ms(fn, iters), library_dtype=str(dt),
-                   library_kernels=[e["name"] for e in profile(fn, 3)["top"]])
-        del A, Vl
-        break
-    torch.cuda.empty_cache()
+    rec = {"library_ms": None, "library_dtype": None, "library_call": None,
+           "library_kernels": [], "library_refused": {}}
+    for call, build in (("bsr", library_operand),
+                        ("csr", library_csr_operand)):
+        for dt in dict.fromkeys((mat.blocks.dtype, torch.float32)):
+            try:
+                A = build(mat, dt)
+                Vl = V.to(dt)
+                fn = lambda: A @ Vl   # noqa: E731
+                fn()
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError) as e:
+                rec["library_refused"][f"{call} {dt}"] = \
+                    str(e).splitlines()[0][:200]
+                A = Vl = None
+                torch.cuda.empty_cache()
+                continue
+            rec.update(library_ms=time_ms(fn, iters), library_dtype=str(dt),
+                       library_call=call,
+                       library_kernels=[e["name"]
+                                        for e in profile(fn, 3)["top"]])
+            del A, Vl
+            torch.cuda.empty_cache()
+            return rec
     return rec
+
+
+def spmm_pair(kind: str):
+    """The kernel wrapper for ``kind`` ("flat", "vres" or "ell") and the
+    plain version it is held to."""
+    from sig_sdp_mmw_torch.ops import bcsr as tb
+
+    return {"flat": (tb.bsr_spmm_flat, tb.bsr_spmm_flat_reference),
+            "vres": (tb.bsr_spmm_vres, tb.bsr_spmm_flat_reference),
+            "ell": (tb.bcsr_spmm, tb.bcsr_spmm_reference)}[kind]
+
+
+def shape_operand(kind: str, csr, block, dtype=torch.bfloat16, group=8,
+                  device="cuda"):
+    """The scipy CSR matrix ``csr`` as the operand of ``kind``'s kernel at
+    ``block`` (int or (Br, Bc)): block-ELL for "ell", else flat block-CSR
+    with ``group`` slots per step."""
+    from sig_sdp_mmw_torch.ops import bcsr as tb
+
+    if kind == "ell":
+        return tb.bcsr_from_csr(csr, block=block, dtype=dtype, device=device)
+    return tb.bsr_flat_from_csr(csr, block=block, group=group, dtype=dtype,
+                                device=device)
+
+
+# (kernel, block shape, D, block dtype) for :func:`shapes`: the 128x128
+# main-path cases (the ring tile; the V-resident kernel's TMA path), the
+# float32 FMA tiles, and the short-block tile's bf16 shapes.
+SHAPE_CASES = (
+    ("flat", 128, 48, "bfloat16"), ("flat", 128, 128, "bfloat16"),
+    ("ell", 128, 48, "bfloat16"), ("vres", 128, 48, "bfloat16"),
+    ("vres", 128, 128, "bfloat16"),
+    ("flat", 128, 32, "float32"), ("ell", 128, 48, "float32"),
+    ("flat", (8, 128), 48, "float32"),
+    ("flat", (8, 128), 48, "bfloat16"), ("flat", (8, 128), 128, "bfloat16"),
+    ("flat", (16, 128), 48, "bfloat16"), ("flat", 32, 48, "bfloat16"),
+    ("flat", 8, 48, "bfloat16"), ("ell", (8, 128), 48, "bfloat16"),
+    ("ell", (16, 128), 48, "bfloat16"), ("ell", 16, 48, "bfloat16"),
+    ("ell", 32, 48, "bfloat16"), ("vres", (8, 128), 48, "bfloat16"))
+
+
+def shapes(cases=SHAPE_CASES, cell=183, iters=20, out_path=None):
+    """Time each case of ``cases`` on S̃ of ``cell`` (G=8 for the flat
+    kernels) after checking it (two launches bitwise equal, within
+    ``REL_TOL`` of the plain version); one JSON line per case.  Needs a
+    CUDA device; writes the record as JSON only to ``out_path``."""
+    from sig_sdp_mmw_torch.core.ell import build_st_csr
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_flat_spmm measures on a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, Q, _ = LargeEnv(cell, 75e-4, seed=0).generate_state_csr()
+    St = build_st_csr(S, Q)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"device": torch.cuda.get_device_name(0), "cell": cell,
+           "cases": []}
+    for kind, block, D, dname in cases:
+        mat = shape_operand(kind, St, block, getattr(torch, dname))
+        fn, plain = spmm_pair(kind)
+        V = torch.randn((mat.nrows, D), generator=gen, device="cuda")
+        Br, Bc = _block_shape(mat)
+        name = f"{kind} {Br}x{Bc} {dname} D={D}"
+        got = fn(mat, V)
+        if not torch.equal(got, fn(mat, V)):
+            raise AssertionError(f"{name}: two launches differ")
+        res = check(name, got, plain(mat, V))
+        del got
+        ms = time_ms(lambda: fn(mat, V), iters)
+        rec = {"case": name, "ms": ms, "max_abs_err": res["max_abs_err"],
+               **bound(mat, D), "v_gather_bytes": v_gather_bytes(mat, D)}
+        rec["share"] = rec["bound_ms"] / ms
+        print(json.dumps(rec))
+        out["cases"].append(rec)
+        del mat, V
+        torch.cuda.empty_cache()
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
 
 
 def main(cell=183, D=48, iters=30, groups=(4, 8, 16, 32), out_path=None,
@@ -261,8 +416,14 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", type=int, default=183)
     ap.add_argument("--D", type=int, default=48)
-    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--iters", type=int, default=None,
+                    help="launches per round (30; 20 with --shapes)")
     ap.add_argument("--groups", type=int, nargs="+", default=[4, 8, 16, 32])
     ap.add_argument("--out", type=str, default=None)
+    ap.add_argument("--shapes", action="store_true",
+                    help="time SHAPE_CASES instead")
     a = ap.parse_args()
-    main(a.cell, a.D, a.iters, tuple(a.groups), out_path=a.out)
+    if a.shapes:
+        shapes(cell=a.cell, iters=a.iters or 20, out_path=a.out)
+    else:
+        main(a.cell, a.D, a.iters or 30, tuple(a.groups), out_path=a.out)

@@ -1,6 +1,6 @@
 """Where an MMW iteration's device time goes, on the card (torch.profiler).
 
-Four configurations, each as its pipeline runs it:
+Five configurations, each as its pipeline runs it:
 
 * ``100k``: cell 183 (K=100,467) as ``experiments/e2e_large.py`` solves
   it: bf16 blocks with stored transpose, S̃/S̃ᵀ through the flat kernel
@@ -11,6 +11,12 @@ Four configurations, each as its pipeline runs it:
   solves it: the slim state, bf16 block-ELL with stored transpose, edge
   Gram, D_pad 48, lanczos_m 8; one segment of ``nit`` iterations at Z=20
   after a warm-up segment;
+* ``midK``: cell 40 (K=4,800) as ``chip_smoke.py`` phase 6 solves it
+  through ``experiments/e2e_large.py``: 32x32 bf16 blocks with stored
+  transpose, S̃/S̃ᵀ through the flat kernel (``flat_group=8``) and Q through
+  the block-ELL kernel, both on the short-block tile; the binary search's
+  first probe (Z=50 in bounds 10-90, D_pad 128 from ``MMWEll._d_pad_for``),
+  one solve of ``nit`` iterations, epilogue included;
 * ``dense300``: the dense path's K=300 solve as bench.py times it (the
   reference geometry of ``tests/fixtures/env_mid.npz``, Z=12, nit=150,
   eta=0.05, D_pad 32), all 150 iterations and the epilogue;
@@ -107,6 +113,28 @@ def solve_1m(nit: int):
                                  num_steps=nit, **kw)
 
 
+def solve_midk(nit: int):
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.models.mmw import mmw_default_lanczos_m
+    from sig_sdp_mmw_torch.models.mmw_ell import MMWEll, mmw_solve_ell
+    from sig_sdp_mmw_torch.models.search import BinarySearchRelaxation
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    env = LargeEnv(40, 75e-4, seed=0)
+    S, Q, h = env.generate_state_csr()
+    ell = env.generate_ell(device="cuda")
+    alg = MMWEll(nit=150, eta=0.05, use_bcsr=True).prepare(
+        ell, S, Q, h_max=h, block=32, dtype=torch.bfloat16,
+        store_transpose=True, flat_group=8)
+    lb, ub = BinarySearchRelaxation().set_bounds(ell)
+    Z = (lb + ub) // 2
+    D_pad, rank_pad = alg._d_pad_for(ell, Z)
+    kw = dict(nit=nit, eta=0.05, D_pad=D_pad, rank_pad=rank_pad,
+              bcsr=alg.bcsr, lanczos_m=mmw_default_lanczos_m(0.05, 150))
+    return lambda: mmw_solve_ell(ell, float(Z), draws=TorchDraws(0, "cuda"),
+                                 **kw)
+
+
 def solve_dense(cell_size: int, Z: float, eta: float):
     """The dense path's whole solve (nit=150, epilogue included), as a
     probe of the dense search runs it: ``dense300`` is bench.py's solve on
@@ -137,12 +165,12 @@ def solve_dense(cell_size: int, Z: float, eta: float):
                              rank_pad=rank_pad, draws=TorchDraws(0, "cuda"))
 
 
-CELLS = {"100k": solve_100k, "1M": solve_1m,
+CELLS = {"100k": solve_100k, "1M": solve_1m, "midK": solve_midk,
          "dense300": lambda nit: solve_dense(10, 12.0, 0.05),
          "dense675": lambda nit: solve_dense(15, 16.0, 0.04)}
 
 
-def main(cells=("100k", "1M", "dense300", "dense675"), nit=5,
+def main(cells=("100k", "1M", "midK", "dense300", "dense675"), nit=5,
          out_path=None):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_iteration measures on a CUDA device")
@@ -153,9 +181,12 @@ def main(cells=("100k", "1M", "dense300", "dense675"), nit=5,
         rec = profile(fn)
         out[cell] = rec
         its = 150 if cell.startswith("dense") else nit
+        rec["calls_per_iteration"] = rec["device_calls"] / its
         print(f"[{cell}] {its} iterations: wall {rec['wall_ms']:.2f} ms, "
               f"device {rec['device_ms']:.2f} ms in {rec['device_calls']} "
-              f"kernels and copies, busy {rec['busy_share']:.3f}")
+              f"kernels and copies ({rec['calls_per_iteration']:.1f} per "
+              f"iteration, epilogue included), busy "
+              f"{rec['busy_share']:.3f}")
         for e in rec["top"]:
             print(f"[{cell}]   {e['ms']:9.3f} ms  {e['calls']:5d}x  "
                   f"{e['name'][:110]}")
@@ -171,7 +202,8 @@ def main(cells=("100k", "1M", "dense300", "dense675"), nit=5,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", nargs="+",
-                    default=["100k", "1M", "dense300", "dense675"])
+                    default=["100k", "1M", "midK", "dense300",
+                             "dense675"])
     ap.add_argument("--nit", type=int, default=5)
     ap.add_argument("--out", type=str, default=None)
     a = ap.parse_args()

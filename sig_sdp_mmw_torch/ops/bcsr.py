@@ -18,8 +18,8 @@ dense 128x128 blocks of which only a few percent of entries are nonzero:
 
 Each kernel wrapper takes the plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernel or raises; ``<wrapper>.launches`` counts its
-launches and ``<wrapper>.generic_launches`` those through the generic tile
-(block shapes without a fast path of their own).  The host packers are
+launches and ``<wrapper>.generic_launches`` those through a body of the
+shapes without a 128x128 fast path (:func:`spmm_route`).  The host packers are
 numpy (above ``_NATIVE_PACK_MIN_NNZ`` nonzeros, the shared C++ packer) and
 give the JAX package's arrays exactly; the containers hold tensors and move
 with ``.to(device)``.
@@ -192,6 +192,8 @@ def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
         return f"D must be a positive multiple of 8, got {V.shape[1]}"
     if mat.bcols.dtype != torch.int32:
         return f"bcols must be torch.int32, got {mat.bcols.dtype}"
+    if mat.bcols.numel() > _MAX_SLOTS:
+        return f"{mat.bcols.numel()} block slots (at most {_MAX_SLOTS})"
     for name, t in (("blocks", mat.blocks), ("bcols", mat.bcols), ("V", V)):
         if not t.is_contiguous():
             return f"{name} must be contiguous"
@@ -211,17 +213,20 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     chunking, or raises.  V's columns are padded with zeros to a multiple of
     8 for the kernel (the gap Lanczos sends D=1) and the result is sliced
     back.  ``bcsr_spmm.launches`` counts kernel launches,
-    ``bcsr_spmm.generic_launches`` those of them through the generic tile.
+    ``bcsr_spmm.generic_launches`` those of them on a route of
+    ``GENERIC_ROUTES``.
 
-    128x128 bfloat16 blocks take the tensor-core ring tile: V is rounded to
-    bfloat16 here, once per call (the plain version's cast), and each CTA
-    covers ``tile_cols`` output columns (default :func:`ring_tile_cols`).
-    128x128 float32 and 8x128 blocks take the FMA tile; every other block
-    shape the generic FMA tile (Br and Bc at run time, V rounded to the
-    block dtype in the tile).  The ring and generic tiles skip padding
-    slots: they rely on the packers' layout, where a row's real blocks come
-    first and every later slot at column-block 0 holds zeros
-    (``tests/test_torch_padding.py`` holds every packer to it).
+    The body follows :func:`spmm_route`.  128x128 bfloat16 blocks take the
+    tensor-core ring tile, every other bfloat16 shape (8x128 included) the
+    short-block tensor-core tile: V is rounded to bfloat16 here, once per
+    call (the plain version's cast), and a CTA (ring) or warp (short) covers
+    ``tile_cols`` output columns (default :func:`ring_tile_cols` and
+    :func:`short_tile_cols`; the override applies to the ring tile only).
+    128x128 and 8x128 float32 blocks take the FMA tile, float32 blocks of
+    every other shape the generic FMA tile.  The ring, short and generic
+    tiles skip padding slots: they rely on the packers' layout, where a
+    row's real blocks come first and every later slot at column-block 0
+    holds zeros (``tests/test_torch_padding.py`` holds every packer to it).
     """
     if V.device.type == "cpu":
         return bcsr_spmm_reference(mat, V, row_chunk)
@@ -238,29 +243,32 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     D8 = Vk.shape[1]
     out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
-    dt = _KERNEL_BLOCK_DTYPES[mat.blocks.dtype]
-    generic = (mat.Brow, mat.B) not in ((128, 128), (8, 128))
+    route = spmm_route("ell", mat.Brow, mat.B, mat.blocks.dtype)
+    maxblk = mat.bcols.shape[1]
     with torch.cuda.device(V.device):
-        if generic:
-            rc = lib.bcsr_spmm_ell_generic_launch(
-                mat.bcols.data_ptr(), mat.blocks.data_ptr(), dt, mat.Brow,
-                mat.B, Vk.data_ptr(), out.data_ptr(), mat.Kb,
-                mat.bcols.shape[1], D8, stream)
-        elif mat.Brow == 128 and mat.blocks.dtype == torch.bfloat16:
+        if route == "ring":
             cols, Vb = ring_operand(Vk, tile_cols)
             rc = lib.bcsr_spmm_ell_bf16_launch(
                 mat.bcols.data_ptr(), mat.blocks.data_ptr(), Vb.data_ptr(),
-                Vb.shape[1], out.data_ptr(), mat.Kb, mat.bcols.shape[1], D8,
-                cols, stream)
-        else:
+                Vb.shape[1], out.data_ptr(), mat.Kb, maxblk, D8, cols, stream)
+        elif route == "short_bf16":
+            cols, Vb = short_operand(Vk)
+            rc = lib.bcsr_spmm_ell_short_launch(
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), mat.Brow, mat.B,
+                Vb.data_ptr(), Vb.shape[1], out.data_ptr(), mat.Kb, maxblk,
+                D8, cols, stream)
+        elif route == "fma":
             rc = lib.bcsr_spmm_ell_launch(
-                mat.bcols.data_ptr(), mat.blocks.data_ptr(), dt, mat.Brow,
-                Vk.data_ptr(), out.data_ptr(), mat.Kb, mat.bcols.shape[1], D8,
-                stream)
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), mat.Brow,
+                Vk.data_ptr(), out.data_ptr(), mat.Kb, maxblk, D8, stream)
+        else:
+            rc = lib.bcsr_spmm_ell_generic_launch(
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), mat.Brow, mat.B,
+                Vk.data_ptr(), out.data_ptr(), mat.Kb, maxblk, D8, stream)
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm: launch failed with cudaError {rc}")
     bcsr_spmm.launches += 1
-    bcsr_spmm.generic_launches += generic
+    bcsr_spmm.generic_launches += route in GENERIC_ROUTES
     return out if D8 == D else out[:, :D]
 
 
@@ -450,7 +458,10 @@ def bsr_spmm_flat_reference(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     return out.reshape(mat.nrows, D)
 
 
-_KERNEL_BLOCK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_BLOCK_DTYPES = (torch.float32, torch.bfloat16)
+
+# Block slots a kernel operand may hold: the kernels index slots in 32 bits.
+_MAX_SLOTS = 2 ** 31 - 1
 
 # Output columns one CTA of the bfloat16 ring tile may cover (the widths
 # instantiated in ops/kernels/csrc/spmm_tile.cuh, SPMM_RING_COLS).
@@ -483,6 +494,55 @@ def ring_operand(V: torch.Tensor, tile_cols: Optional[int] = None
     return cols, Vb
 
 
+# Output columns one warp of the short-block tile may cover (the widths
+# instantiated in ops/kernels/csrc/spmm_tile.cuh, SPMM_SHORT_COLS): whole
+# m16 tiles of the transposed product.
+SHORT_TILE_COLS = (16, 32, 48, 64, 96, 128)
+
+# The routes of the shapes without a 128x128 fast path (counted by the
+# wrappers' ``generic_launches``).
+GENERIC_ROUTES = ("short_bf16", "generic_f32")
+
+
+def spmm_route(kind: str, Br: int, Bc: int, dtype) -> str:
+    """The kernel body that takes a ``kind`` ("flat", "ell" or "vres")
+    product of ``dtype`` blocks of ``Br`` x ``Bc``:
+
+    * ``"ring"``: 128x128 bfloat16 blocks (the cp.async ring tile of the
+      flat and block-ELL kernels, the TMA/wgmma ring of the V-resident one);
+    * ``"fma"``: 128x128 float32 blocks, and 8x128 float32 blocks on
+      block-ELL (the FMA tiles);
+    * ``"short_bf16"``: bfloat16 blocks of every other shape (the
+      short-block tensor-core tile);
+    * ``"generic_f32"``: float32 blocks of every other shape (the generic
+      FMA tile).
+    """
+    if kind not in ("flat", "ell", "vres"):
+        raise ValueError(f"spmm_route: unknown kernel kind {kind!r}")
+    if dtype not in _KERNEL_BLOCK_DTYPES:
+        raise ValueError(f"spmm_route: no kernel for {dtype} blocks")
+    bf16 = dtype == torch.bfloat16
+    if (Br, Bc) == (128, 128):
+        return "ring" if bf16 else "fma"
+    if bf16:
+        return "short_bf16"
+    return "fma" if kind == "ell" and (Br, Bc) == (8, 128) else "generic_f32"
+
+
+def short_tile_cols(D: int) -> int:
+    """Columns per warp of the short-block tile for a D-column V (D a
+    multiple of 8): the narrowest instantiated width that covers all of D,
+    so each block is read once per call; 128 above 128."""
+    return next((c for c in SHORT_TILE_COLS if c >= D), SHORT_TILE_COLS[-1])
+
+
+def short_operand(V: torch.Tensor) -> Tuple[int, torch.Tensor]:
+    """(columns per warp, V rounded to bfloat16) for the short-block tile:
+    :func:`ring_operand` at :func:`short_tile_cols` (the plain version's
+    round to nearest even, zero columns up to a whole number of tiles)."""
+    return ring_operand(V, short_tile_cols(V.shape[1]))
+
+
 def pad_columns(V: torch.Tensor) -> torch.Tensor:
     """V (contiguous) with zero columns appended up to a multiple of 8: the
     kernels take D a multiple of 8, their wrappers any D (the gap Lanczos
@@ -493,8 +553,7 @@ def pad_columns(V: torch.Tensor) -> torch.Tensor:
 
 def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
     """Why the CUDA kernels cannot take these operands (None if they can).
-    Every block shape has a kernel (128x128 its own paths, any other the
-    generic tile).  The wrappers pad V's columns to a multiple of 8 first
+    Every block shape has a kernel body (:func:`spmm_route`).  The wrappers pad V's columns to a multiple of 8 first
     (:func:`pad_columns`)."""
     if mat.blocks.dtype not in _KERNEL_BLOCK_DTYPES:
         return f"blocks must be float32 or bfloat16, got {mat.blocks.dtype}"
@@ -508,6 +567,8 @@ def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
                         ("bcols", mat.bcols, torch.int32)):
         if t.dtype != dt:
             return f"{name} must be {dt}, got {t.dtype}"
+    if mat.bcols.numel() > _MAX_SLOTS:
+        return f"{mat.bcols.numel()} block slots (at most {_MAX_SLOTS})"
     for name, t in (("blocks", mat.blocks), ("bcols", mat.bcols),
                     ("row_ptr", mat.row_ptr), ("V", V)):
         if not t.is_contiguous():
@@ -526,16 +587,17 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     Any D: V's columns are padded with zeros to a multiple of 8 for the
     kernel (:func:`pad_columns`) and the result is sliced back.
     ``bsr_spmm_flat.launches`` counts kernel launches,
-    ``bsr_spmm_flat.generic_launches`` those of them through the generic
-    tile.
+    ``bsr_spmm_flat.generic_launches`` those of them on a route of
+    ``GENERIC_ROUTES``.
 
-    128x128 bfloat16 blocks take the tensor-core ring tile, as in
-    :func:`bcsr_spmm`: V is rounded to bfloat16 here once, ``tile_cols``
-    output columns per CTA (default :func:`ring_tile_cols`), and the slots
-    that pad a row to a multiple of G (column-block 0 after the row's first
-    slot, all zeros) are skipped.  128x128 float32 blocks take the FMA tile,
-    every other block shape the generic FMA tile (which skips padding slots
-    too)."""
+    The body follows :func:`spmm_route`, as in :func:`bcsr_spmm`: 128x128
+    bfloat16 blocks take the tensor-core ring tile (``tile_cols`` output
+    columns per CTA, default :func:`ring_tile_cols`), every other bfloat16
+    shape the short-block tensor-core tile, with V rounded to bfloat16 here
+    once; 128x128 float32 blocks take the FMA tile, every other float32
+    shape the generic FMA tile.  All but the FMA tile skip the slots that
+    pad a row to a multiple of G (column-block 0 after the row's first
+    slot, all zeros)."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
@@ -550,29 +612,32 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     D8 = Vk.shape[1]
     out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
-    generic = (mat.Br, mat.Bc) != (128, 128)
+    route = spmm_route("flat", mat.Br, mat.Bc, mat.blocks.dtype)
+    ptrs = (mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+            mat.blocks.data_ptr())
     with torch.cuda.device(V.device):
-        if generic:
-            rc = lib.bsr_spmm_flat_generic_launch(
-                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
-                mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G,
-                D8, stream)
-        elif mat.blocks.dtype == torch.bfloat16:
+        if route == "ring":
             cols, Vb = ring_operand(Vk, tile_cols)
             rc = lib.bsr_spmm_flat_bf16_launch(
-                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), Vb.data_ptr(), Vb.shape[1],
+                *ptrs, Vb.data_ptr(), Vb.shape[1], out.data_ptr(), mat.Kbr,
+                mat.G, D8, cols, stream)
+        elif route == "short_bf16":
+            cols, Vb = short_operand(Vk)
+            rc = lib.bsr_spmm_flat_short_launch(
+                *ptrs, mat.Br, mat.Bc, Vb.data_ptr(), Vb.shape[1],
                 out.data_ptr(), mat.Kbr, mat.G, D8, cols, stream)
-        else:
+        elif route == "fma":
             rc = lib.bsr_spmm_flat_launch(
-                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), Vk.data_ptr(), out.data_ptr(), mat.Kbr,
+                *ptrs, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, D8,
+                stream)
+        else:
+            rc = lib.bsr_spmm_flat_generic_launch(
+                *ptrs, mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr,
                 mat.G, D8, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_flat: launch failed with cudaError {rc}")
     bsr_spmm_flat.launches += 1
-    bsr_spmm_flat.generic_launches += generic
+    bsr_spmm_flat.generic_launches += route in GENERIC_ROUTES
     return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
@@ -602,10 +667,11 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     what the kernel keeps in L2; bfloat16 blocks run on persistent CTAs that
     take the block-rows in index order from a counter zeroed on the stream
     before each launch.  Block shapes other than 128x128 go through the flat
-    kernel's generic tile (float32 V rounded in the tile, no residency
-    hint), built into this kernel's library.  ``bsr_spmm_vres.launches``
-    counts kernel launches, ``bsr_spmm_vres.generic_launches`` those of
-    them through the generic tile."""
+    kernel's short-block (bfloat16) and generic (float32) tiles, built into
+    this kernel's library, with no residency hint (:func:`spmm_route`).
+    ``bsr_spmm_vres.launches`` counts kernel launches,
+    ``bsr_spmm_vres.generic_launches`` those of them on a route of
+    ``GENERIC_ROUTES``."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
@@ -620,31 +686,33 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     D8 = Vk.shape[1]
     out = torch.empty((mat.nrows, D8), dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
-    generic = (mat.Br, mat.Bc) != (128, 128)
+    route = spmm_route("vres", mat.Br, mat.Bc, mat.blocks.dtype)
+    ptrs = (mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
+            mat.blocks.data_ptr())
     with torch.cuda.device(V.device):
-        if generic:
-            rc = lib.bsr_spmm_vres_generic_launch(
-                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), _KERNEL_BLOCK_DTYPES[mat.blocks.dtype],
-                mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G,
-                D8, stream)
-        elif mat.blocks.dtype == torch.bfloat16:
+        if route == "ring":
             Vc = vres_operand(Vk)
             counter = torch.empty((1,), dtype=torch.int32, device=V.device)
             rc = lib.bsr_spmm_vres_bf16_launch(
-                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), Vc.data_ptr(), Vc.shape[1],
-                counter.data_ptr(), out.data_ptr(), mat.Kbr, mat.nsteps,
-                mat.G, D8, stream)
-        else:
+                *ptrs, Vc.data_ptr(), Vc.shape[1], counter.data_ptr(),
+                out.data_ptr(), mat.Kbr, mat.nsteps, mat.G, D8, stream)
+        elif route == "short_bf16":
+            cols, Vb = short_operand(Vk)
+            rc = lib.bsr_spmm_vres_short_launch(
+                *ptrs, mat.Br, mat.Bc, Vb.data_ptr(), Vb.shape[1],
+                out.data_ptr(), mat.Kbr, mat.G, D8, cols, stream)
+        elif route == "fma":
             rc = lib.bsr_spmm_vres_launch(
-                mat.row_ptr.data_ptr(), mat.bcols.data_ptr(),
-                mat.blocks.data_ptr(), Vk.data_ptr(), out.data_ptr(), mat.Kbr,
+                *ptrs, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, D8,
+                stream)
+        else:
+            rc = lib.bsr_spmm_vres_generic_launch(
+                *ptrs, mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr,
                 mat.G, D8, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_vres: launch failed with cudaError {rc}")
     bsr_spmm_vres.launches += 1
-    bsr_spmm_vres.generic_launches += generic
+    bsr_spmm_vres.generic_launches += route in GENERIC_ROUTES
     return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 

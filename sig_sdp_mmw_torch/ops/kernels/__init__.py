@@ -12,14 +12,17 @@ start every ``nvcc`` together.
 * ``bsr_spmm_vres``  — flat block-CSR SpMM with V resident in L2
   (``bsr_spmm_vres.cu``).
 
-The first two share their tile code through ``spmm_tile.cuh`` (the
-tensor-core ring tile of bfloat16 blocks, the FMA tile of the rest, and the
-generic tile of any block shape).  Each library has three entry points:
-``*_launch`` on CUDA-core FMA (float32 V; for the V-resident kernel float32
-blocks and V), ``*_bf16_launch`` for 128-row bfloat16 blocks (the ring
-tile; for the V-resident kernel a TMA ring feeding wgmma), and
-``*_generic_launch`` for every block shape the other two do not take (Br and
-Bc at run time; the V-resident kernel's is the flat kernel's generic body).
+The three share their tile code through ``spmm_tile.cuh`` (the tensor-core
+ring tile of 128x128 bfloat16 blocks, the FMA tiles of float32 blocks, and
+the short-block tensor-core tile of every other bfloat16 shape).  Each
+library has four entry points, one per route of
+:func:`sig_sdp_mmw_torch.ops.bcsr.spmm_route`: ``*_launch`` ("fma":
+CUDA-core FMA, float32 blocks and V), ``*_bf16_launch`` ("ring": 128x128
+bfloat16 blocks; for the V-resident kernel a TMA ring feeding wgmma),
+``*_short_launch`` ("short_bf16": bfloat16 blocks of any other shape, Br and
+Bc at run time) and ``*_generic_launch`` ("generic_f32": float32 blocks of
+any other shape).  The V-resident kernel's last two are the flat kernel's
+bodies.
 A library's build hash covers the headers of ``csrc/`` as well as its own
 source.
 """
@@ -92,8 +95,11 @@ def bsr_spmm_flat_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.bsr_spmm_flat_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, i32,
                                               i32, i32, i32, vp]
     lib.bsr_spmm_flat_generic_launch.restype = i32
-    lib.bsr_spmm_flat_generic_launch.argtypes = [vp, vp, vp, i32, i32, i32,
-                                                 vp, vp, i32, i32, i32, vp]
+    lib.bsr_spmm_flat_generic_launch.argtypes = [vp, vp, vp, i32, i32, vp, vp,
+                                                 i32, i32, i32, vp]
+    lib.bsr_spmm_flat_short_launch.restype = i32
+    lib.bsr_spmm_flat_short_launch.argtypes = [vp, vp, vp, i32, i32, vp, i32,
+                                               vp, i32, i32, i32, i32, vp]
     return lib
 
 
@@ -101,14 +107,17 @@ def bcsr_spmm_ell_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = load_kernel_library("bcsr_spmm_ell", defines)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bcsr_spmm_ell_launch.restype = i32
-    lib.bcsr_spmm_ell_launch.argtypes = [vp, vp, i32, i32, vp, vp, i64, i32,
-                                         i32, vp]
+    lib.bcsr_spmm_ell_launch.argtypes = [vp, vp, i32, vp, vp, i64, i32, i32,
+                                         vp]
     lib.bcsr_spmm_ell_bf16_launch.restype = i32
     lib.bcsr_spmm_ell_bf16_launch.argtypes = [vp, vp, vp, i32, vp, i64, i32,
                                               i32, i32, vp]
     lib.bcsr_spmm_ell_generic_launch.restype = i32
-    lib.bcsr_spmm_ell_generic_launch.argtypes = [vp, vp, i32, i32, i32, vp,
-                                                 vp, i64, i32, i32, vp]
+    lib.bcsr_spmm_ell_generic_launch.argtypes = [vp, vp, i32, i32, vp, vp,
+                                                 i64, i32, i32, vp]
+    lib.bcsr_spmm_ell_short_launch.restype = i32
+    lib.bcsr_spmm_ell_short_launch.argtypes = [vp, vp, i32, i32, vp, i32, vp,
+                                               i64, i32, i32, i32, vp]
     return lib
 
 
@@ -122,8 +131,11 @@ def bsr_spmm_vres_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.bsr_spmm_vres_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, vp,
                                               i32, i32, i32, i32, vp]
     lib.bsr_spmm_vres_generic_launch.restype = i32
-    lib.bsr_spmm_vres_generic_launch.argtypes = [vp, vp, vp, i32, i32, i32,
-                                                 vp, vp, i32, i32, i32, vp]
+    lib.bsr_spmm_vres_generic_launch.argtypes = [vp, vp, vp, i32, i32, vp, vp,
+                                                 i32, i32, i32, vp]
+    lib.bsr_spmm_vres_short_launch.restype = i32
+    lib.bsr_spmm_vres_short_launch.argtypes = [vp, vp, vp, i32, i32, vp, i32,
+                                               vp, i32, i32, i32, i32, vp]
     return lib
 
 

@@ -9,8 +9,9 @@
 // Operands (all device pointers, contiguous):
 //   bcols   [Kbr, maxblk] int32 column-block id of each slot; a row's real
 //           blocks come first, then padding at column-block 0
-//   blocks  [Kbr, BR, maxblk, BC] float32 or bfloat16 (BR x BC = 128x128 or
-//           8x128 on the fast paths, any shape through the generic tile)
+//   blocks  [Kbr, BR, maxblk, BC] float32 or bfloat16 (BR x BC = 128x128 on
+//           the ring and FMA tiles, any shape through the short-block and
+//           generic tiles)
 //   V       [Kbr*BR, D] float32, D a multiple of 8 (FMA entry point), or
 //   Vb      [Kbr*BR, ldv] bfloat16, rounded by the wrapper, zero past D
 //           (bf16 entry point)
@@ -37,29 +38,33 @@
 //     bytes of float32);
 //   * keeps 2-3 slices of 16 KB of A per CTA in flight through a cp.async
 //     ring, two CTAs per SM, with mma.sync bf16 on the tensor cores.
-// 128-row float32 blocks and 8x128 blocks (off the main paths) take fp32
-// FMA on the CUDA cores, 64 columns per CTA, every slot walked (a bf16 x
-// bf16-rounded product is exact in fp32, so they agree with the tensor-core
-// path up to summation order).  Every other block shape (Br x Bc at run
-// time: 16x128, 32x32 in the mid-K search, 16x16, ...) takes the generic
-// FMA tile of spmm_tile.cuh (bcsr_spmm_ell_generic_launch), which skips
-// padding slots.  The grid is one-dimensional (block-row major, the D tiles
-// of a row adjacent), so 8-row blocks at a million links (126,150
-// block-rows) fit it.
+// 128-row and 8x128 float32 blocks (off the main paths) take fp32 FMA on
+// the CUDA cores, 64 columns per CTA, every slot walked, and float32
+// blocks of every other shape the generic FMA tile.  bfloat16 blocks of
+// every other shape (8x128 as the packers build it by default, 16x128,
+// 32x32 in the mid-K search, 16x16, ...; Br x Bc at run time) take the
+// short-block tensor-core tile of spmm_tile.cuh (bcsr_spmm_ell_short_launch):
+// one warp per block-row (or 8-32-row slice of one), mma.sync on the
+// transposed tile so that an 8-row block fills an n8 tile, a per-warp
+// cp.async ring with no CTA-wide barrier, padding slots skipped, V read as
+// bfloat16 rounded once by the wrapper.  The grids are one-dimensional
+// (block-row major, the D tiles of a row adjacent), so 8-row blocks at a
+// million links (126,150 block-rows) fit them.
 
 #include "spmm_tile.cuh"
 
 namespace {
 
-template <int BR, typename T>
+template <int BR>
 __global__ void __launch_bounds__(spmm::Fma<BR>::NT)
-bcsr_spmm_ell_fma(const int* __restrict__ bcols, const T* __restrict__ blocks,
+bcsr_spmm_ell_fma(const int* __restrict__ bcols,
+                  const float* __restrict__ blocks,
                   const float* __restrict__ V, float* __restrict__ out,
                   int maxblk, int D, int ndt) {
   const int64_t r = blockIdx.x / ndt;
   const int d0 = (blockIdx.x % ndt) * spmm::DT;
-  spmm::fma_tile<BR, T>(bcols, blocks, V, out, (int)r, (int)r + 1, maxblk, D,
-                        r, d0);
+  spmm::fma_tile<BR>(bcols, blocks, V, out, (int)r, (int)r + 1, maxblk, D, r,
+                     d0);
 }
 
 template <int N>
@@ -75,18 +80,17 @@ bcsr_spmm_ell_ring(const int* __restrict__ bcols,
                           (r + 1) * maxblk, maxblk, D, r, d0, smem);
 }
 
-// Any other block shape through the generic tile: block-row r is one step
-// of G = maxblk slots.
-template <typename T>
+// Float32 blocks of any other shape through the generic tile: block-row r
+// is one step of G = maxblk slots.
 __global__ void __launch_bounds__(spmm::gen::NT)
 bcsr_spmm_ell_generic(const int* __restrict__ bcols,
-                      const T* __restrict__ blocks,
+                      const float* __restrict__ blocks,
                       const float* __restrict__ V, float* __restrict__ out,
                       int maxblk, int Br, int Bc, int D, int nrc, int ndt) {
   const spmm::GenericItem it = spmm::generic_item(nrc, ndt);
-  spmm::generic_tile<T>(bcols, blocks, V, out, it.r * maxblk,
-                        (it.r + 1) * maxblk, maxblk, Br, Bc, D, it.r, it.r0,
-                        it.d0);
+  spmm::generic_tile(bcols, blocks, V, out, it.r * maxblk,
+                     (it.r + 1) * maxblk, maxblk, Br, Bc, D, it.r, it.r0,
+                     it.d0);
 }
 
 template <int N>
@@ -109,13 +113,11 @@ int launch_ring(const int* bcols, const __nv_bfloat16* blocks,
 
 extern "C" {
 
-// Float32 V through the FMA tile.  blk_dtype: 0 = float32 blocks, 1 =
-// bfloat16 blocks; brow: 128 or 8 (128-row bfloat16 blocks go to
-// bcsr_spmm_ell_bf16_launch).  Returns the cudaError_t of the launch (0 =
-// launched).
-int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int blk_dtype,
-                         int brow, const void* V, void* out, long long Kbr,
-                         int maxblk, int D, void* stream) {
+// Float32 blocks through the FMA tile, float32 V; brow: 128 or 8.  Returns
+// the cudaError_t of the launch (0 = launched).
+int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int brow,
+                         const void* V, void* out, long long Kbr, int maxblk,
+                         int D, void* stream) {
   if (Kbr <= 0 || maxblk <= 0 || D <= 0 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const long long ndt = (D + spmm::DT - 1) / spmm::DT;
@@ -124,53 +126,54 @@ int bcsr_spmm_ell_launch(const void* bcols, const void* blocks, int blk_dtype,
   const dim3 grid((unsigned)(Kbr * ndt));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int* bc = static_cast<const int*>(bcols);
+  const float* a = static_cast<const float*>(blocks);
   const float* v = static_cast<const float*>(V);
   float* o = static_cast<float*>(out);
   const int nd = (int)ndt;
-  if (brow == 128 && blk_dtype == 0) {
-    bcsr_spmm_ell_fma<128, float><<<grid, spmm::Fma<128>::NT, 0, st>>>(
-        bc, static_cast<const float*>(blocks), v, o, maxblk, D, nd);
-  } else if (brow == 8 && blk_dtype == 1) {
-    bcsr_spmm_ell_fma<8, __nv_bfloat16><<<grid, spmm::Fma<8>::NT, 0, st>>>(
-        bc, static_cast<const __nv_bfloat16*>(blocks), v, o, maxblk, D, nd);
-  } else if (brow == 8 && blk_dtype == 0) {
-    bcsr_spmm_ell_fma<8, float><<<grid, spmm::Fma<8>::NT, 0, st>>>(
-        bc, static_cast<const float*>(blocks), v, o, maxblk, D, nd);
-  } else {
+  if (brow == 128)
+    bcsr_spmm_ell_fma<128><<<grid, spmm::Fma<128>::NT, 0, st>>>(
+        bc, a, v, o, maxblk, D, nd);
+  else if (brow == 8)
+    bcsr_spmm_ell_fma<8><<<grid, spmm::Fma<8>::NT, 0, st>>>(
+        bc, a, v, o, maxblk, D, nd);
+  else
     return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
-// Any other block shape (Br x Bc at run time) through the generic tile
-// (spmm_tile.cuh): blk_dtype 0 = float32 blocks, 1 = bfloat16; float32 V
-// [Kbr*Br, D], D a multiple of 8; out [Kbr*Br, D] float32.  Returns the
-// cudaError_t of the launch.
+// Float32 blocks of any other shape (Br x Bc at run time) through the
+// generic tile (spmm_tile.cuh): float32 V [Kbr*Br, D], D a multiple of 8;
+// out [Kbr*Br, D] float32.  Returns the cudaError_t of the launch.
 int bcsr_spmm_ell_generic_launch(const void* bcols, const void* blocks,
-                                 int blk_dtype, int Br, int Bc, const void* V,
-                                 void* out, long long Kbr, int maxblk, int D,
+                                 int Br, int Bc, const void* V, void* out,
+                                 long long Kbr, int maxblk, int D,
                                  void* stream) {
   const unsigned grid = spmm::generic_grid(Kbr, Br, D);
   if (Kbr <= 0 || maxblk <= 0 || Br <= 0 || Bc <= 0 || D <= 0 ||
       D % 8 != 0 || grid == 0)
     return (int)cudaErrorInvalidValue;
-  const int nrc = (Br + spmm::gen::RM - 1) / spmm::gen::RM;
-  const int ndt = (D + spmm::DT - 1) / spmm::DT;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int* bc = static_cast<const int*>(bcols);
-  const float* v = static_cast<const float*>(V);
-  float* o = static_cast<float*>(out);
-  if (blk_dtype == 0)
-    bcsr_spmm_ell_generic<float><<<grid, spmm::gen::NT, 0, st>>>(
-        bc, static_cast<const float*>(blocks), v, o, maxblk, Br, Bc, D, nrc,
-        ndt);
-  else if (blk_dtype == 1)
-    bcsr_spmm_ell_generic<__nv_bfloat16><<<grid, spmm::gen::NT, 0, st>>>(
-        bc, static_cast<const __nv_bfloat16*>(blocks), v, o, maxblk, Br, Bc,
-        D, nrc, ndt);
-  else
-    return (int)cudaErrorInvalidValue;
+  bcsr_spmm_ell_generic<<<grid, spmm::gen::NT, 0,
+                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bcols), static_cast<const float*>(blocks),
+      static_cast<const float*>(V), static_cast<float*>(out), maxblk, Br, Bc,
+      D, (Br + spmm::gen::RM - 1) / spmm::gen::RM,
+      (D + spmm::DT - 1) / spmm::DT);
   return (int)cudaGetLastError();
+}
+
+// bfloat16 blocks of any shape but 128x128 (8x128 included) through the
+// short-block tensor-core tile (spmm_tile.cuh): block-row r is one step of
+// G = maxblk slots; Vb [Kbr*Br, ldv] bf16, rounded by the wrapper, ncols
+// output columns per warp (16, 32, 48, 64, 96 or 128; ldv >= ceil(D /
+// ncols) * ncols), out [Kbr*Br, D] float32.  Returns the cudaError_t of
+// the launch.
+int bcsr_spmm_ell_short_launch(const void* bcols, const void* blocks, int Br,
+                               int Bc, const void* Vb, int ldv, void* out,
+                               long long Kbr, int maxblk, int D, int ncols,
+                               void* stream) {
+  return spmm::launch_short_bf16<true>(
+      nullptr, bcols, blocks, Br, Bc, Vb, ldv, out, Kbr, maxblk, D, ncols,
+      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // 128-row bfloat16 blocks through the ring tile: Vb [Kbr*128, ldv] bf16,

@@ -1,5 +1,6 @@
 // Flat block-CSR SpMM for Hopper: out = A @ V, A stored as only its real
-// blocks (128x128 on the main path, any Br x Bc through the generic tile).
+// blocks (128x128 on the main path, any Br x Bc through the short-block
+// and generic tiles).
 //
 // Replaces the TPU kernel sig_sdp_mmw_tpu/ops/bcsr.py::bsr_spmm_pallas_flat
 // (same operands, same contract: V is cast to the block dtype, products
@@ -38,8 +39,11 @@
 //     tiles of one block-row are neighbours in the launch order, so the
 //     second tile finds the row's blocks in L2;
 //   * every other block shape, Br x Bc at run time (the packers' default
-//     8x128, the 32x32 blocks of the mid-K search, ...), goes through the
-//     generic FMA tile of spmm_tile.cuh (bsr_spmm_flat_generic_launch).
+//     8x128, the 32x32 blocks of the mid-K search, ...), goes in bfloat16
+//     through the short-block tile of spmm_tile.cuh (one warp per block-row
+//     or 8-32-row slice, mma.sync on the transposed tile, a per-warp
+//     cp.async ring; bsr_spmm_flat_short_launch), in float32 through the
+//     generic FMA tile (bsr_spmm_flat_generic_launch).
 // Every grid is one-dimensional (block-row major, the D tiles of a row
 // adjacent), so an operand may have more than 65,535 block-rows (the
 // million-link S-tilde at 8-row blocks has 126,160).
@@ -55,9 +59,8 @@ bsr_spmm_flat_f32(const int* __restrict__ row_ptr,
                   const float* __restrict__ V, float* __restrict__ out,
                   int G, int D, int ndt) {
   const int64_t r = blockIdx.x / ndt;
-  spmm::fma_tile<128, float>(bcols, blocks, V, out, row_ptr[r],
-                             row_ptr[r + 1], G, D, r,
-                             (blockIdx.x % ndt) * spmm::DT);
+  spmm::fma_tile<128>(bcols, blocks, V, out, row_ptr[r], row_ptr[r + 1], G,
+                      D, r, (blockIdx.x % ndt) * spmm::DT);
 }
 
 template <int N>
@@ -112,17 +115,30 @@ int bsr_spmm_flat_launch(const void* row_ptr, const void* bcols,
   return (int)cudaGetLastError();
 }
 
-// Any other block shape (Br x Bc at run time) through the generic tile
-// (spmm_tile.cuh): blk_dtype 0 = float32 blocks, 1 = bfloat16; float32 V
-// [nrows, D], D a multiple of 8; out [nrows, D] float32.  Returns the
-// cudaError_t of the launch.
+// Float32 blocks of any other shape (Br x Bc at run time) through the
+// generic tile (spmm_tile.cuh): float32 V [nrows, D], D a multiple of 8;
+// out [nrows, D] float32.  Returns the cudaError_t of the launch.
 int bsr_spmm_flat_generic_launch(const void* row_ptr, const void* bcols,
-                                 const void* blocks, int blk_dtype, int Br,
-                                 int Bc, const void* V, void* out, int Kbr,
-                                 int G, int D, void* stream) {
-  return spmm::launch_flat_generic(row_ptr, bcols, blocks, blk_dtype, Br, Bc,
-                                   V, out, Kbr, G, D,
+                                 const void* blocks, int Br, int Bc,
+                                 const void* V, void* out, int Kbr, int G,
+                                 int D, void* stream) {
+  return spmm::launch_flat_generic(row_ptr, bcols, blocks, Br, Bc, V, out,
+                                   Kbr, G, D,
                                    reinterpret_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 blocks of any shape but 128x128 (Br x Bc at run time) through
+// the short-block tensor-core tile (spmm_tile.cuh): Vb [nrows, ldv] bf16,
+// rounded by the wrapper, ncols output columns per warp (16, 32, 48, 64, 96
+// or 128; ldv >= ceil(D / ncols) * ncols), out [nrows, D] float32.
+// Returns the cudaError_t of the launch.
+int bsr_spmm_flat_short_launch(const void* row_ptr, const void* bcols,
+                               const void* blocks, int Br, int Bc,
+                               const void* Vb, int ldv, void* out, int Kbr,
+                               int G, int D, int ncols, void* stream) {
+  return spmm::launch_short_bf16<false>(
+      row_ptr, bcols, blocks, Br, Bc, Vb, ldv, out, Kbr, G, D, ncols,
+      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 blocks through the ring tile: Vb [nrows, ldv] bf16, ncols output

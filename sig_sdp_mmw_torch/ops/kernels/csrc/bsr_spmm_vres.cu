@@ -1,6 +1,6 @@
 // Flat block-CSR SpMM with V held resident for Hopper: out = A @ V, A stored
-// as only its real blocks (128x128; other shapes through the generic tile),
-// G per step.
+// as only its real blocks, G per step (128x128; other shapes through the
+// flat kernel's short-block and generic tiles).
 //
 // Replaces the TPU kernel sig_sdp_mmw_tpu/ops/bcsr.py::bsr_spmm_pallas_vres:
 // the contract of bsr_spmm_pallas_flat (V cast to the block dtype once,
@@ -55,8 +55,10 @@
 // design: one CTA per (block-row, 64-column D tile) on a one-dimensional
 // grid, the V column-blocks of a step stacked in shared memory, fp32 FMA
 // (full float32, no TF32).  Block shapes other than 128x128 go through the
-// flat kernel's generic tile (bsr_spmm_vres_generic_launch): V stays in
-// device memory and L2 without a residency hint.
+// flat kernel's bodies (spmm_tile.cuh): bfloat16 blocks the short-block
+// tensor-core tile (bsr_spmm_vres_short_launch), float32 blocks the generic
+// FMA tile (bsr_spmm_vres_generic_launch); V stays in device memory and L2
+// without a residency hint.
 //
 // Variants of the bf16 path for experiments/bench_vres_parts.py (-D at
 // build time): VRES_STAGES=n ring depth; VRES_ONE_ITEM_PER_CTA one CTA per
@@ -709,17 +711,29 @@ int bsr_spmm_vres_launch(const void* row_ptr, const void* bcols,
 }
 
 // Block shapes other than 128x128 (Br x Bc at run time): the contract of
-// the 128x128 paths through the flat kernel's generic tile (spmm_tile.cuh),
-// V read in float32 and rounded to the block dtype in the tile, with no
-// residency hint.  blk_dtype 0 = float32 blocks, 1 = bfloat16; out
-// [nrows, D] float32.  Returns the cudaError_t of the launch.
+// the 128x128 paths through the flat kernel's bodies (spmm_tile.cuh), with
+// no residency hint.  Float32 blocks: the generic FMA tile, float32 V
+// [nrows, D].  Returns the cudaError_t of the launch.
 int bsr_spmm_vres_generic_launch(const void* row_ptr, const void* bcols,
-                                 const void* blocks, int blk_dtype, int Br,
-                                 int Bc, const void* V, void* out, int Kbr,
-                                 int G, int D, void* stream) {
-  return spmm::launch_flat_generic(row_ptr, bcols, blocks, blk_dtype, Br, Bc,
-                                   V, out, Kbr, G, D,
+                                 const void* blocks, int Br, int Bc,
+                                 const void* V, void* out, int Kbr, int G,
+                                 int D, void* stream) {
+  return spmm::launch_flat_generic(row_ptr, bcols, blocks, Br, Bc, V, out,
+                                   Kbr, G, D,
                                    reinterpret_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 blocks: the short-block tensor-core tile, Vb [nrows, ldv] bf16
+// rounded by the wrapper, ncols output columns per warp (16, 32, 48, 64, 96
+// or 128; ldv >= ceil(D / ncols) * ncols).  Returns the
+// cudaError_t of the launch.
+int bsr_spmm_vres_short_launch(const void* row_ptr, const void* bcols,
+                               const void* blocks, int Br, int Bc,
+                               const void* Vb, int ldv, void* out, int Kbr,
+                               int G, int D, int ncols, void* stream) {
+  return spmm::launch_short_bf16<false>(
+      row_ptr, bcols, blocks, Br, Bc, Vb, ldv, out, Kbr, G, D, ncols,
+      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 blocks: Vc [nrows, ldv] bf16 (ldv a multiple of 8, columns past

@@ -316,32 +316,52 @@ def test_kernels_on_edge_rows_on_cuda(D, kind, dt):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+# The bf16 tiles whose repeat launches must agree bit for bit: the ring
+# tile (block-ELL, flat, flat with D over two CTAs) and the short-block tile
+# (block-ELL at the packers' default 8x128, flat at the mid-K search's 32x32
+# and at 8x8, V-resident at 8x128).
+BF16_TILE_CASES = {"ell": ("ell", 128), "flat": ("flat", 128),
+                   "flat-split": ("flat", 128),
+                   "short-ell-8x128": ("ell", (8, 128)),
+                   "short-flat-32x32": ("flat", 32),
+                   "short-flat-8x8": ("flat", 8),
+                   "short-vres-8x128": ("vres", (8, 128))}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["ell", "flat", "flat-split"])
+@pytest.mark.parametrize("kind", list(BF16_TILE_CASES))
 @pytest.mark.parametrize("D", [48, 128])
 def test_bf16_tile_is_deterministic_on_cuda(D, kind):
-    """Repeat launches of the bf16 ring tile are bitwise equal (one CTA
-    owns each output tile and sums its slots in a fixed order), also with
-    D split over several CTAs."""
+    """Repeat launches of the bf16 ring and short-block tiles are bitwise
+    equal (one CTA or warp owns each output tile and sums its slots in a
+    fixed order), also with D split over several CTAs; each agrees with its
+    plain version to 1e-5 of max|out|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     S, Q, _ = generate_large_state_csr(10, 75e-4, seed=2)
     St = build_st_csr(S, Q)
-    V = torch.randn((384, D), device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(2))
-    if kind == "ell":
-        mat = tb.bcsr_from_csr(St, block=128, dtype=torch.bfloat16,
+    which, block = BF16_TILE_CASES[kind]
+    if which == "ell":
+        mat = tb.bcsr_from_csr(St, block=block, dtype=torch.bfloat16,
                                device="cuda")
-        run = lambda: tb.bcsr_spmm(mat, V)   # noqa: E731
+        fn, plain = tb.bcsr_spmm, tb.bcsr_spmm_reference
     else:
-        mat = tb.bsr_flat_from_csr(St, block=128, group=8,
+        mat = tb.bsr_flat_from_csr(St, block=block, group=8,
                                    dtype=torch.bfloat16, device="cuda")
-        cols = {48: 16, 128: 64}[D] if kind == "flat-split" else None
+        fn = tb.bsr_spmm_vres if which == "vres" else tb.bsr_spmm_flat
+        plain = tb.bsr_spmm_flat_reference
+    V = torch.randn((mat.nrows, D), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2))
+    if kind == "flat-split":
+        cols = {48: 16, 128: 64}[D]
         run = lambda: tb.bsr_spmm_flat(mat, V, tile_cols=cols)   # noqa: E731
+    else:
+        run = lambda: fn(mat, V)   # noqa: E731
+    g0 = fn.generic_launches
     a, b = run(), run()
     assert torch.equal(a, b)
-    want = (tb.bcsr_spmm_reference(mat, V) if kind == "ell"
-            else tb.bsr_spmm_flat_reference(mat, V))
+    assert fn.generic_launches == g0 + (2 if kind.startswith("short") else 0)
+    want = plain(mat, V)
     assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
@@ -369,13 +389,14 @@ def test_vres_kernel_on_long_and_many_rows_on_cuda(Kbr, G, D, dt):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
-# Block shapes of the generic tile: Br in 8..128 by Bc in 16..128, the
-# square 16/32/64 blocks, a block taller than one CTA's 128 rows (split into
-# row chunks) and a shape whose Bc is not a multiple of the staged 32-deep
-# slice.  128x128 (every kernel) and 8x128 (block-ELL) keep their own paths.
+# Block shapes without a 128x128 fast path: Br in 8..128 by Bc in 16..128,
+# the square 8/16/32/64 blocks (8x8 is the graft entry's), a block taller
+# than 128 rows (split into row slices) and a shape whose Bc is not a
+# multiple of the 32-deep slice nor of 16 (the short tile's zero tail).
+# Float32 8x128 on block-ELL keeps its own FMA path.
 GENERIC_SHAPES = [(8, 128), (16, 128), (32, 128), (64, 128), (8, 16),
                   (16, 16), (32, 32), (64, 64), (128, 16), (16, 64),
-                  (256, 32), (24, 40)]
+                  (256, 32), (24, 40), (8, 8)]
 
 
 def _generic_case(kind, block, dt, G=4):
@@ -392,15 +413,17 @@ def _generic_case(kind, block, dt, G=4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [1, 20, 48, 128])
+@pytest.mark.parametrize("D", [1, 20, 48, 128, 200])
 @pytest.mark.parametrize("block", GENERIC_SHAPES,
                          ids=[f"{a}x{b}" for a, b in GENERIC_SHAPES])
 @pytest.mark.parametrize("kind", ["flat", "ell", "vres"])
 def test_generic_tile_matches_reference_on_cuda(kind, block, D, dt):
-    """The generic tile of the three kernels against their plain versions
-    on the card, at every block shape the fast paths do not take: to 1e-5
-    of max|out|, two launches bitwise equal, counted as generic launches
-    (except 8x128 on the block-ELL kernel, its own FMA path)."""
+    """The short-block (bf16) and generic (float32) tiles of the three
+    kernels against their plain versions on the card, at every block shape
+    without a 128x128 fast path and D from 1 to 200 (two 128-column tiles):
+    to 1e-5 of max|out|, two launches bitwise equal, counted as generic
+    launches (except float32 8x128 on the block-ELL kernel, its own FMA
+    path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mat, kernel, plain = _generic_case(kind, block, getattr(torch, dt))
@@ -410,7 +433,11 @@ def test_generic_tile_matches_reference_on_cuda(kind, block, D, dt):
     got = kernel(mat, V)
     assert torch.equal(got, kernel(mat, V)) and got.shape == (mat.nrows, D)
     assert kernel.launches == n0 + 2
-    own_path = kind == "ell" and block == (8, 128)
+    route = tb.spmm_route(kind, *block, getattr(torch, dt))
+    assert route == ("short_bf16" if dt == "bfloat16" else
+                     "fma" if kind == "ell" and block == (8, 128) else
+                     "generic_f32")
+    own_path = route == "fma"
     assert kernel.generic_launches == g0 + (0 if own_path else 2)
     want = plain(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -448,3 +475,110 @@ def test_generic_tile_takes_more_than_65535_block_rows_on_cuda(kind):
                     generator=torch.Generator("cuda").manual_seed(6))
     got, want = kernel(mat, V), plain(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+ROUTE_SHAPES = [(128, 128), *GENERIC_SHAPES]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["flat", "ell", "vres"])
+def test_spmm_route_names_one_body_per_shape(kind, dt):
+    """spmm_route: 128x128 takes the ring tile in bfloat16 and the FMA tile
+    in float32 on every kernel; every other bfloat16 shape the short-block
+    tile; every other float32 shape the generic tile, except 8x128 on
+    block-ELL (its FMA tile).  Only the last two routes count as generic
+    launches; other kinds and dtypes are refused."""
+    dtype = getattr(torch, dt)
+    for block in ROUTE_SHAPES:
+        route = tb.spmm_route(kind, *block, dtype)
+        if block == (128, 128):
+            want = "ring" if dt == "bfloat16" else "fma"
+        elif dt == "bfloat16":
+            want = "short_bf16"
+        else:
+            want = "fma" if (kind, block) == ("ell", (8, 128)) \
+                else "generic_f32"
+        assert route == want, (kind, block, dt)
+        assert (route in tb.GENERIC_ROUTES) == (want in ("short_bf16",
+                                                         "generic_f32"))
+    with pytest.raises(ValueError, match="kind"):
+        tb.spmm_route("dense", 8, 128, dtype)
+    with pytest.raises(ValueError, match="float64"):
+        tb.spmm_route(kind, 8, 128, torch.float64)
+
+
+def test_short_operand_rounds_like_the_plain_version():
+    """The short-block tile's V: the plain version's cast to bfloat16
+    (round to nearest even, ties included), zero columns up to a whole
+    number of warp tiles of 16..128 columns (128 above 128)."""
+    assert [tb.short_tile_cols(D) for D in (8, 16, 24, 40, 48, 56, 72, 96,
+                                            104, 128, 136, 200)] == \
+        [16, 16, 32, 48, 48, 64, 96, 96, 128, 128, 128, 128]
+    rng = np.random.default_rng(7)
+    for D, ldv in ((8, 16), (24, 32), (48, 48), (64, 64), (200, 256)):
+        V = rng.standard_normal((40, D)).astype(np.float32)
+        # Values half-way between two bfloat16 numbers round to even.
+        V[0, :4] = np.array([1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8),
+                             2 ** -130], np.float32)
+        Vt = torch.from_numpy(V)
+        cols, Vb = tb.short_operand(tb.pad_columns(Vt))
+        assert cols == tb.short_tile_cols(D) and Vb.shape == (40, ldv)
+        assert Vb.dtype == torch.bfloat16
+        assert torch.equal(Vb[:, :D], Vt.to(torch.bfloat16))
+        assert not Vb[:, D:].any()
+        assert Vb[0, :3].float().tolist() == [1.0, 1 + 2 ** -6, -1.0]
+
+
+@pytest.mark.parametrize("kind,block", [("flat", (8, 128)),
+                                        ("ell", (16, 128)),
+                                        ("flat", (8, 8)), ("ell", (24, 40))])
+def test_library_csr_operand_holds_the_real_blocks(kind, block):
+    """The yardstick's CSR operand (for block shapes the BSR product
+    refuses): every entry of every real block, zeros inside a block
+    included, at its place, so its product is the plain version's; padding
+    slots and empty block-rows add nothing."""
+    from sig_sdp_mmw_torch.experiments.bench_flat_spmm import (
+        library_csr_operand, real_slots)
+
+    M = _edge_operand()
+    if kind == "ell":
+        mat = tb.bcsr_from_csr(M, block=block)
+        plain = tb.bcsr_spmm_reference
+    else:
+        mat = tb.bsr_flat_from_csr(M, block=block, group=4)
+        plain = tb.bsr_spmm_flat_reference
+    A = library_csr_operand(mat, torch.float32)
+    Br, Bc = block
+    assert A._nnz() == int(real_slots(mat).sum()) * Br * Bc
+    dense = np.zeros((mat.nrows, mat.nrows))
+    dense[:640, :640] = M.toarray()
+    np.testing.assert_allclose(A.to_dense().numpy(), dense, rtol=1e-6,
+                               atol=1e-7)
+    V = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (mat.nrows, 5)).astype(np.float32))
+    np.testing.assert_allclose((A @ V).numpy(), plain(mat, V).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_refuse_2_31_slots():
+    """The kernels index block slots in 32 bits: an operand with 2^31 or
+    more slots is refused by name (shapes on the meta device: nothing is
+    allocated but V)."""
+    Kb, maxblk = 2 ** 20, 2 ** 11 + 1
+    ell = tb.BlockEll(
+        bcols=torch.empty((Kb, maxblk), dtype=torch.int32, device="meta"),
+        blocks=torch.empty((Kb, 1, maxblk, 1), dtype=torch.bfloat16,
+                           device="meta"), nrows=Kb)
+    V = torch.zeros((Kb, 8))
+    assert "block slots" in tb.ell_kernel_unsupported(ell, V)
+    flat = tb.FlatBsr(
+        brows=torch.empty(Kb, dtype=torch.int32, device="meta"),
+        bcols=torch.empty(Kb * maxblk, dtype=torch.int32, device="meta"),
+        blocks=torch.empty((Kb, 1, maxblk), dtype=torch.bfloat16,
+                           device="meta"),
+        row_ptr=torch.empty(Kb + 1, dtype=torch.int32, device="meta"),
+        nrows=Kb)
+    assert "block slots" in tb.flat_kernel_unsupported(flat, V)
+    small = dataclasses.replace(flat, bcols=flat.bcols[:Kb * 8],
+                                blocks=flat.blocks[:, :, :8])
+    assert "block slots" not in (tb.flat_kernel_unsupported(small, V) or "")
