@@ -82,14 +82,31 @@
    BLER mean and share above 1e-5, all users in one slot at BLER >= 0.99,
    solve and rounding seconds per probe; (c) the entry point
    experiments/sim_mmw_time.py at cells 10 and 15 (K=675), every CSV
-   written with finite times, and a search at cell 15 with MMW(nit=150,
-   eta=0.04): rem 0, verified; (d) the SpMM kernels launched 0 times.
+   written with finite times (the search at cell 15 with MMW(nit=150,
+   eta=0.04), rem 0 and verified, runs in phase 7's sim_all_bler); (d)
+   the SpMM kernels launched 0 times.
 6. Mid-K (LargeEnv cell 40, Kp <= 16,384, so the device rounding takes the
    batched route) on 32x32 bf16 blocks, so S̃/S̃ᵀ go through the flat
    kernel's generic tile and Q through the block-ELL kernel's: e2e_large
    with search="binary" and search="speculative" (wave 4): rem 0,
    verified, Z within 1 of each other, generic launches on both kernels,
    none of the V-resident kernel, every operand on the card.
+7. The journal comparison slice (sig_sdp_mmw_torch/models/{admm,lrp,
+   baselines,heuristics}.py, plain torch: cuSOLVER eigh, GEMMs,
+   elementwise passes): (a) experiments/sim_all_bler.py at cell 15 (K=675,
+   the journal's largest cell), seed 0: the MMW search, then Rand, LRP,
+   MAX_GAIN and MAX_ASSO at its Z_fin, each rounded and put through BLER:
+   MMW rem 0 and verified, every method's rem, seconds and BLER share above
+   1e-5 printed, every CSV row K+1 finite values; (b) experiments/
+   sim_mmw_oracle_z.py at cell 10 (K=300, oracle_nit=500), seed 0: its
+   seconds, Z and each method's rem; (c) the oracle on the K=300 reference
+   geometry of phase 5: BinarySearchRelaxation + ADMMSDPSolver(nit=500),
+   rem 0, verified, Z within 1 of the JAX package's (ORACLE_Z_REF); (d) at
+   K=675 and (a)'s Z: one ADMMSDPSolver(nit=100) probe, Spectral,
+   MAX_RAND, MAX_GAIN and MAX_ASSO timed; an ADMM solve and a MAX_GAIN call
+   profiled (launches per iteration and per user step, busy share); the
+   eigh time per call (CUDA events) at K=300 and K=675, each at its path's
+   Z, and its share of an ADMM iteration; (e) no SpMM kernel launched.
 Each phase prints its seconds ("[time] phase N").
 
 Every kernel counts its launches; each path's counts are set to 0 just
@@ -105,6 +122,7 @@ generic block shapes checked in phase 2), the last ``{"ok": true,
 
 import contextlib
 import gc
+import io
 import json
 import os
 import subprocess
@@ -126,6 +144,13 @@ MILLION_NIT_CONV = 150
 # float32 with and without x64 (probes 33, 20, 13, 10, 12, 11);
 # tests/test_torch_dense_slice.py recomputes it.
 DENSE_Z_REF = 11
+# The JAX package's Z_fin on that state with BinarySearchRelaxation +
+# ADMMSDPSolver(nit=500), on the CPU, in float32 (probes 33, 20, 13, 10, 8,
+# 9, 10; remainders 0, 0, 0, 0, 10, 1, 0; verified).  With x64 enabled the
+# probe at 9 ends at remainder 0 and the search at 9.
+ORACLE_Z_REF = 10
+ORACLE_NIT = 500
+JOURNAL_CELL, JOURNAL_K = 15, 675     # the journal's largest cell
 DENSE_NIT = 150
 E2E_Z_REF = 16        # E2E_LARGE.json (the JAX tool on cell 183)
 # The JAX tool's heuristic rows at that Z (E2E_LARGE.json).
@@ -228,7 +253,7 @@ def dense_phase(tb, out_dir: str) -> dict:
     """Phase 5, the dense journal-scale path on the card: (a) the bench's
     solve on the K=300 reference geometry, (b) the drive recipe's search,
     verification and BLER on that state, (c) sim_mmw_time at cells 10 and
-    15 and a search at cell 15, (d) no SpMM kernel launched."""
+    15, (d) no SpMM kernel launched."""
     import numpy as np
     import torch
 
@@ -313,7 +338,7 @@ def dense_phase(tb, out_dir: str) -> dict:
     if one_slot < 0.99:
         raise AssertionError(f"all-in-one-slot BLER {one_slot} < 0.99")
 
-    # (c) the entry point, then a search at cell 15 (K=675).
+    # (c) the entry point.
     t0 = time.time()
     path = mmw_time_main(["--cells", "10", "15", "--repeat", "1", "--out",
                           out_dir])
@@ -328,26 +353,6 @@ def dense_phase(tb, out_dir: str) -> dict:
             rec[name] = row.tolist()
             log(f"[5 dense] {name}: {[round(float(x), 1) for x in row]} us")
     log(f"[5 dense] sim_mmw_time cells 10, 15: {time.time() - t0:.1f} s")
-    env15 = WirelessEnv(cell_size=15, sta_density_per_1m2=RHO, seed=0,
-                        device="cuda")
-    st15 = env15.generate_S_Q_hmax()
-    bs15 = BinarySearchRelaxation()
-    bs15.feasibility_check_alg = MMW(nit=DENSE_NIT, eta=0.04, seed=0)
-    t0 = time.time()
-    z15, Z15, rem15 = bs15.run(st15)
-    s15 = time.time() - t0
-    ok15 = verify_assignment(st15, z15)[0]
-    p15 = bs15.LOGGED_NP_DATA["bs_search_per_it"]
-    rec.update(K15=st15.K, Z_fin15=int(Z15), search15_s=s15,
-               rounding15_s_per_probe=(p15[:, 9] / 1e6).tolist())
-    log(f"[5 dense] cell 15: K={st15.K} bounds {bs15.set_bounds(st15)} "
-        f"probes {p15[:, 5].astype(int).tolist()} Z_fin={Z15} rem={rem15} "
-        f"verified={ok15}; search {s15:.3f} s; solve_s per probe "
-        f"{[round(float(x) / 1e6, 4) for x in p15[:, 8]]}, rounding_s per "
-        f"probe {[round(float(x) / 1e6, 4) for x in p15[:, 9]]}")
-    if st15.K != 675 or rem15 != 0 or not ok15:
-        raise AssertionError(f"cell 15 (K={st15.K}): rem {rem15}, "
-                             f"verified {ok15}")
 
     # (d) the dense path reaches no SpMM kernel.
     n = (tb.bsr_spmm_flat.launches, tb.bcsr_spmm.launches,
@@ -356,6 +361,218 @@ def dense_phase(tb, out_dir: str) -> dict:
         f"{n[2]} [{time.time() - t_phase:.1f}s]")
     if any(n):
         raise AssertionError(f"the dense path launched SpMM kernels {n}")
+    return rec
+
+
+def run_entry_point(main, argv, prefix: str):
+    """``main(argv)`` with its standard output captured and then echoed:
+    (output directory, its one ``prefix`` JSON record, seconds)."""
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            path = main(argv)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    secs = time.time() - t0
+    recs = [json.loads(line[len(prefix):])
+            for line in buf.getvalue().splitlines() if line.startswith(prefix)]
+    if len(recs) != 1:
+        raise AssertionError(f"{prefix!r}: {len(recs)} records")
+    return path, recs[0], secs
+
+
+def metric_row(path: str, name: str, width: int):
+    """The one CSV row of metric ``name``: ``width`` finite values."""
+    import numpy as np
+
+    with open(os.path.join(path, name)) as f:
+        rows = f.read().strip().splitlines()
+    row = np.array(rows[0].split(",")[2:], float) if len(rows) == 1 else None
+    if row is None or row.size != width or not np.all(np.isfinite(row)):
+        raise AssertionError(f"{name}: {rows}")
+    return row
+
+
+def eigh_ms(st, Z: int, iters: int = 20) -> float:
+    """ms per ``torch.linalg.eigh`` call (CUDA events, after a warm-up) on
+    the symmetrized consensus point of a 20-iteration ADMM solve of ``st``
+    at ``Z``: the matrix the oracle decomposes every iteration (cuSOLVER's
+    time depends on its spectrum, so on Z)."""
+    import torch
+
+    from sig_sdp_mmw_torch.models.admm import admm_sdp_solve
+
+    _, X = admm_sdp_solve(st, float(Z), nit=20, rank_pad=16)
+    X = 0.5 * (X + X.T)
+    torch.linalg.eigh(X)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        torch.linalg.eigh(X)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def journal_phase(tb, out_dir: str) -> dict:
+    """Phase 7, the journal comparison slice on the card: (a) sim_all_bler
+    at cell 15, (b) sim_mmw_oracle_z at cell 10, (c) the oracle's search on
+    the K=300 reference geometry held to ORACLE_Z_REF, (d) the per-method
+    times, the eigh time and the launches at K=675, (e) no SpMM kernel."""
+    import numpy as np
+    import torch
+
+    from sig_sdp_mmw_torch.env import WirelessEnv
+    from sig_sdp_mmw_torch.experiments import sim_all_bler, sim_mmw_oracle_z
+    from sig_sdp_mmw_torch.experiments.profile_iteration import profile
+    from sig_sdp_mmw_torch.models import (MAX_ASSO, MAX_GAIN, MAX_RAND,
+                                          ADMMSDPSolver,
+                                          BinarySearchRelaxation,
+                                          SpectralSDPSolver,
+                                          verify_assignment)
+
+    reset_launches(tb)
+    tag = str(int(RHO * 10000))
+    rec = {}
+
+    # (a) sim_all_bler at the journal's largest cell.
+    path, r, secs = run_entry_point(
+        sim_all_bler.main, ["--cells", str(JOURNAL_CELL), "--repeat", "1",
+                            "--out", os.path.join(out_dir, "bler")],
+        "[sim_all_bler] ")
+    K, Z = r["K"], r["Z"]
+    for name, m in r["methods"].items():
+        metric_row(path, f"{name}-{JOURNAL_CELL}-{tag}", K + 1)
+        log(f"[7 journal] sim_all_bler cell {JOURNAL_CELL} K={K} Z={Z} "
+            f"{name}: rem {m['rem']}, verified {m['verified']}, "
+            f"{m['s']:.3f} s, BLER frac>1e-5 "
+            f"{m['bler_frac_above_1e-5']:.4f}")
+    rec["sim_all_bler"] = dict(r, seconds=secs)
+    log(f"[7 journal] sim_all_bler: {secs:.1f} s")
+    mmw = r["methods"]["mmw"]
+    if K != JOURNAL_K or mmw["rem"] != 0 or not mmw["verified"]:
+        raise AssertionError(f"sim_all_bler cell {JOURNAL_CELL}: K={K}, "
+                             f"MMW {mmw}")
+
+    # (b) the matched-Z oracle validation at cell 10.
+    path, o, secs = run_entry_point(
+        sim_mmw_oracle_z.main, ["--cells", "10", "--repeat", "1",
+                                "--oracle_nit", str(ORACLE_NIT), "--out",
+                                os.path.join(out_dir, "oracle_z")],
+        "[sim_mmw_oracle_z] ")
+    for name in ("scs", "mmw150", "rand"):
+        metric_row(path, f"{name}-10-{tag}", o["K"] + 2)
+    rec["sim_mmw_oracle_z"] = dict(o, seconds=secs)
+    log(f"[7 journal] sim_mmw_oracle_z cell 10 K={o['K']}: oracle Z "
+        f"{o['Z']} (probes {o['probe_Z']}), rem {o['rem']}, seconds "
+        f"{ {k: round(v, 3) for k, v in o['s'].items()} }; {secs:.1f} s")
+    if o["rem"]["scs"] != 0:
+        raise AssertionError(f"oracle search ended at rem {o['rem']['scs']}")
+
+    # (c) the oracle on the K=300 reference geometry, held to the JAX Z.
+    here = os.path.dirname(os.path.abspath(__file__))
+    fix = np.load(os.path.join(here, "tests", "fixtures", "env_mid.npz"))
+    env = WirelessEnv(cell_size=10, sta_density_per_1m2=RHO, seed=3,
+                      pad_to=320, device="cuda", sta_locs=fix["sta_locs"])
+    st = env.generate_S_Q_hmax()
+    bs = BinarySearchRelaxation()
+    bs.feasibility_check_alg = ADMMSDPSolver(nit=ORACLE_NIT)
+    t0 = time.time()
+    z, Zo, rem = bs.run(st)
+    secs = time.time() - t0
+    ok = verify_assignment(st, z)[0]
+    probes = bs.LOGGED_NP_DATA["bs_search_per_it"]
+    rec["oracle"] = dict(Z_fin=int(Zo), remainder=int(rem), verified=ok,
+                         search_s=secs,
+                         probe_Z=probes[:, 5].astype(int).tolist(),
+                         probe_rem=probes[:, 7].astype(int).tolist(),
+                         solve_s=(probes[:, 8] / 1e6).tolist(),
+                         rounding_s=(probes[:, 9] / 1e6).tolist())
+    log(f"[7 journal] oracle on the K=300 geometry: probes "
+        f"{rec['oracle']['probe_Z']} rems {rec['oracle']['probe_rem']} "
+        f"Z_fin={Zo} (JAX: {ORACLE_Z_REF}) rem={rem} verified={ok}; "
+        f"search {secs:.2f} s, solve_s per probe "
+        f"{[round(x, 3) for x in rec['oracle']['solve_s']]}")
+    if rem != 0 or not ok or abs(Zo - ORACLE_Z_REF) > 1:
+        raise AssertionError(f"oracle: Z_fin {Zo} rem {rem} verified {ok} "
+                             f"(JAX {ORACLE_Z_REF})")
+
+    # (d) at K=675: per-method time, launches, eigh.
+    t_d = time.time()
+    st15 = WirelessEnv(cell_size=JOURNAL_CELL, sta_density_per_1m2=RHO,
+                       seed=0, device="cuda").generate_S_Q_hmax()
+    st10 = WirelessEnv(cell_size=10, sta_density_per_1m2=RHO, seed=0,
+                       device="cuda").generate_S_Q_hmax()
+    admm_nit = 100
+
+    solve_s = {}
+
+    def admm_probe():
+        alg = ADMMSDPSolver(nit=admm_nit)
+        _, gX = alg.run_with_state(0, Z, st15)
+        solve_s["admm100"] = alg.LOGGED_NP_DATA["admm_solve"][-1, 5] / 1e6
+        return alg.rounding(Z, gX, st15)
+
+    def admm_solve():
+        return ADMMSDPSolver(nit=admm_nit).run_with_state(0, Z, st15)
+
+    def spectral():
+        alg = SpectralSDPSolver()
+        _, gX = alg.run_with_state(0, Z, st15)
+        return alg.rounding(Z, gX, st15)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    methods = {
+        "admm100": admm_probe,
+        "spectral": spectral,
+        "mrand": lambda: MAX_RAND.run(Z, st15),
+        "mgain": lambda: MAX_GAIN.run(Z, st15),
+        "masso": lambda: MAX_ASSO.run(Z, st15)}
+    per = {}
+    for name, fn in methods.items():
+        (zv, Zm, rm), s = timed(fn)
+        per[name] = dict(Z=int(Zm), rem=int(rm), seconds=s,
+                         solve_s=solve_s.get(name),
+                         verified=verify_assignment(st15, zv)[0])
+        log(f"[7 journal] K={st15.K} Z={Z} {name}: Z {Zm} rem {rm} "
+            f"verified {per[name]['verified']}, {s:.3f} s")
+    # Launches: an ADMM solve per iteration, a slot-major heuristic per
+    # user step (K of them; MAX_ASSO and MAX_RAND run the same scan).
+    prof = {"admm100": profile(admm_solve, top=4),
+            "mgain": profile(methods["mgain"], top=4)}
+    it_ms = per["admm100"]["solve_s"] / admm_nit * 1e3
+    e_ms = {"K300": eigh_ms(st10, o["Z"]), "K675": eigh_ms(st15, Z)}
+    rec.update(per_method=per, profiles=prof, eigh_ms=e_ms,
+               Kp={"K300": st10.Kp, "K675": st15.Kp}, admm_ms_per_it=it_ms,
+               admm_launches_per_it=prof["admm100"]["device_calls"] / admm_nit,
+               user_steps=st15.K,
+               launches_per_user_step=prof["mgain"]["device_calls"] / st15.K)
+    log(f"[7 journal] eigh per call: K={st10.K} (Kp {st10.Kp}, Z {o['Z']}) "
+        f"{e_ms['K300']:.3f} ms, K={st15.K} (Kp {st15.Kp}, Z {Z}) "
+        f"{e_ms['K675']:.3f} ms; ADMM at K={st15.K}: {it_ms:.3f} ms per "
+        f"iteration (solve {per['admm100']['solve_s']:.3f} s / {admm_nit}), "
+        f"eigh {e_ms['K675'] / it_ms:.3f} of it; profiled solve: "
+        f"{rec['admm_launches_per_it']:.1f} launches and "
+        f"{prof['admm100']['device_ms'] / admm_nit:.3f} ms of device time "
+        f"per iteration, busy {prof['admm100']['busy_share']:.3f}")
+    log(f"[7 journal] MAX_GAIN: {st15.K} user steps, "
+        f"{rec['launches_per_user_step']:.1f} launches per step, busy "
+        f"{prof['mgain']['busy_share']:.3f} [{time.time() - t_d:.1f}s]")
+
+    # (e) the slice reaches no SpMM kernel.
+    n = (tb.bsr_spmm_flat.launches, tb.bcsr_spmm.launches,
+         tb.bsr_spmm_vres.launches)
+    log(f"[7 journal] launches: flat {n[0]}, block-ELL {n[1]}, V-resident "
+        f"{n[2]}")
+    if any(n):
+        raise AssertionError(f"the journal slice launched SpMM kernels {n}")
     return rec
 
 
@@ -843,6 +1060,12 @@ def main() -> int:
     t_phase = time.time()
     midk = midk_phase(tb, e2e_main)
     log(f"[time] phase 6 {time.time() - t_phase:.1f}s")
+
+    # ---- 7. the journal comparison slice -----------------------------------
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = journal_phase(tb, tmp)
+    log(f"[time] phase 7 {time.time() - t_phase:.1f}s")
     log(f"[done] {time.time() - t_start:.1f}s")
 
     def entry(name, launches, case, source, generic_launches):
@@ -856,6 +1079,7 @@ def main() -> int:
                 "generic_launches": generic_launches,
                 "block_shapes": generic[name]}
 
+    log(f"[7 summary] {json.dumps(journal)}")
     log(f"[6 summary] {json.dumps(midk)}")
     log(f"[3 summary] {json.dumps(e2e_rec)}")
     log(gpu)

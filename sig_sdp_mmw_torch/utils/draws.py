@@ -55,6 +55,23 @@ split in three for MAX_RAND):
 * ``rand_pref(Z_pad, Kp, dtype)`` — its uniform [0, 1) slot scores;
 * ``rand_fill(Kp, Z)``          — its fallback slots.
 
+The journal comparison slice draws by its own roles (the dense
+heuristics reuse ``score_fill`` for MAX_GAIN/MAX_ASSO, JAX ``PRNGKey(777)``,
+and ``rand_fill`` for MAX_RAND, JAX ``split(PRNGKey(4242), 3)[2]``):
+
+* ``sdp_rand_factor(shape, dtype)`` — ``RandSDPSolver``'s Gaussian factor
+  (JAX: the call's key, ``fold_in(PRNGKey(seed), n)``);
+* ``spectral_start(shape, dtype)`` — ``SpectralSDPSolver``'s start block
+  (JAX: ``PRNGKey(seed)``, the same on every call);
+* ``lrp_fill(Kp, Z)``            — ``LRPSolver``'s fallback slots (JAX:
+  ``fold_in(PRNGKey(seed), n)``);
+* ``rand_gx(shape, dtype)``      — MAX_RAND's random factor [Kp, 8] (JAX:
+  ``split(PRNGKey(4242), 3)[0]``);
+* ``rand_rv(shape, dtype)``      — its slot vectors [Z_pad, 8] (JAX: the
+  split's second key);
+* ``rotation(shape, dtype)``     — the simplex rotation's Gaussian (JAX: the
+  key given to ``random_rotation``).
+
 The batched solves and probe searches (``parallel/batch.py``) derive draws
 objects from draws objects:
 
@@ -93,6 +110,7 @@ _DENSE_RV, _DENSE_FILL, _LOC, _DIR, _MOB, _PCKL = range(5, 11)
 _ELL_BRV, _ELL_BFILL, _ELL_ATTEMPT, _ATTEMPT_RV, _ATTEMPT_FILL = range(11, 16)
 _SCORE_FILL, _RAND_ORDER, _RAND_PREF, _RAND_FILL = range(16, 20)
 _WAVE, _SCEN_SOLVE, _SCEN_ROUND, _CAND_ROUND = range(20, 24)
+_SDP_RAND, _SPEC_START, _LRP_FILL, _RAND_GX, _RAND_RV, _ROT = range(24, 30)
 
 
 class TorchDraws:
@@ -189,6 +207,24 @@ class TorchDraws:
 
     def rand_fill(self, Kp: int, Z: int) -> torch.Tensor:
         return self._randint(Kp, Z, _RAND_FILL)
+
+    def sdp_rand_factor(self, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _SDP_RAND)
+
+    def spectral_start(self, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _SPEC_START)
+
+    def lrp_fill(self, Kp: int, Z: int) -> torch.Tensor:
+        return self._randint(Kp, Z, _LRP_FILL)
+
+    def rand_gx(self, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _RAND_GX)
+
+    def rand_rv(self, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _RAND_RV)
+
+    def rotation(self, shape, dtype) -> torch.Tensor:
+        return self._normal(shape, dtype, _ROT)
 
     def _child(self, *words: int) -> "TorchDraws":
         return TorchDraws(self.seed, self.device,

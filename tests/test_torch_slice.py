@@ -106,7 +106,19 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.env.mob, sig_sdp_mmw_torch.models.rounding,"
             " sig_sdp_mmw_torch.models.rounding_ell,"
             " sig_sdp_mmw_torch.models.heuristics_ell,"
-            " sig_sdp_mmw_torch.parallel.batch; "
+            " sig_sdp_mmw_torch.parallel.batch, sig_sdp_mmw_torch.models,"
+            " sig_sdp_mmw_torch.ops.simplex,"
+            " sig_sdp_mmw_torch.utils.checkpoint,"
+            " sig_sdp_mmw_torch.experiments.pd_mmw_template,"
+            " sig_sdp_mmw_torch.experiments.sim_all_bler,"
+            " sig_sdp_mmw_torch.experiments.sim_all_mmw,"
+            " sig_sdp_mmw_torch.experiments.sim_bound_ablation,"
+            " sig_sdp_mmw_torch.experiments.sim_convergence,"
+            " sig_sdp_mmw_torch.experiments.sim_graph_test,"
+            " sig_sdp_mmw_torch.experiments.sim_mmw_oracle_time,"
+            " sig_sdp_mmw_torch.experiments.sim_mmw_oracle_z,"
+            " sig_sdp_mmw_torch.experiments.sim_online_iterations,"
+            " sig_sdp_mmw_torch.experiments.sim_online_methods; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

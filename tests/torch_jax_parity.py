@@ -1,8 +1,12 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): carry
 JAX containers across as numpy, hand the JAX package's random draws to the
-port on the JAX schedule, and keep torch to one thread while a module runs."""
+port on the JAX schedule, keep torch to one thread while a module runs, and
+run a JAX experiment script and its port side by side."""
 
+import csv
 import dataclasses
+import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -52,9 +56,11 @@ class JaxDraws:
     """The draws of ``sig_sdp_mmw_tpu`` for one solve (``mmw_solve`` /
     ``mmw_solve_ell``'s ``key``), one rounding (``rounding_native_csr``'s,
     ``rounding_ell``'s or the dense ``rounding``'s ``key``; ``nattempt`` for
-    the batched ones), one heuristic (``PRNGKey(777)``, ``PRNGKey(4242)``)
-    or one probe search (``fold_in(PRNGKey(seed), ncall)``), by role, on the
-    JAX package's key schedule."""
+    the batched ones), one heuristic (``PRNGKey(777)``, ``PRNGKey(4242)``),
+    one probe search (``fold_in(PRNGKey(seed), ncall)``), one baseline call
+    (``RandSDPSolver``'s and ``LRPSolver``'s ``fold_in(PRNGKey(seed), n)``,
+    ``SpectralSDPSolver``'s ``PRNGKey(seed)``) or one simplex rotation, by
+    role, on the JAX package's key schedule."""
 
     def __init__(self, key, nit: int = 0, nattempt: int = 10):
         self.key = key
@@ -127,6 +133,24 @@ class JaxDraws:
     def rand_fill(self, Kp, Z):
         return self._randint(jax.random.split(self.key, 3)[2], Kp, Z)
 
+    def sdp_rand_factor(self, shape, dtype):
+        return self._normal(self.key, shape, dtype)
+
+    def spectral_start(self, shape, dtype):
+        return self._normal(self.key, shape, dtype)
+
+    def lrp_fill(self, Kp, Z):
+        return self._randint(self.key, Kp, Z)
+
+    def rand_gx(self, shape, dtype):
+        return self._normal(jax.random.split(self.key, 3)[0], shape, dtype)
+
+    def rand_rv(self, shape, dtype):
+        return self._normal(jax.random.split(self.key, 3)[1], shape, dtype)
+
+    def rotation(self, shape, dtype):
+        return self._normal(self.key, shape, dtype)
+
     def _child(self, k):
         return JaxDraws(k, self.nit, self.nattempt)
 
@@ -143,3 +167,31 @@ class JaxDraws:
     def candidate_round(self, attempt, cand, n):
         return self._child(jax.random.split(
             jax.random.fold_in(self.key, 1000 + attempt), n)[cand])
+
+
+def _metric_rows(path):
+    """{file name: row lengths} of a run directory (the checkpoint ledger's
+    text as it is)."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name)) as f:
+            out[name] = ([len(r) for r in csv.reader(f)]
+                         if name != "checkpoint.jsonl" else f.read())
+    return out
+
+
+def check_experiment_metrics(script, extra, tmp_path):
+    """Run ``experiments/<script>.py`` of both packages with ``--smoke
+    --cells 3`` and ``extra`` (the JAX one on the CPU platform, the port on
+    the CPU device): the port writes the same metric files, with the same
+    row lengths, into the directory it returns."""
+    argv = ["--smoke", "--cells", "3", *extra]
+    jmod = importlib.import_module(f"sig_sdp_mmw_tpu.experiments.{script}")
+    tmod = importlib.import_module(f"sig_sdp_mmw_torch.experiments.{script}")
+    jpath = jmod.main(argv + ["--platform", "cpu", "--out",
+                              str(tmp_path / "jax")])
+    tpath = tmod.main(argv + ["--device", "cpu", "--out",
+                              str(tmp_path / "port")])
+    assert tpath == str(tmp_path / "port")
+    jrows, trows = _metric_rows(jpath), _metric_rows(tpath)
+    assert trows and trows == jrows
