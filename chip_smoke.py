@@ -107,6 +107,29 @@
    profiled (launches per iteration and per user step, busy share); the
    eigh time per call (CUDA events) at K=300 and K=675, each at its path's
    Z, and its share of an ADMM iteration; (e) no SpMM kernel launched.
+8. The sharded path (sig_sdp_mmw_torch/parallel/{mesh,distributed}.py,
+   the graph axis of models/mmw_ell.py and models/mmw.py): the flat (#1)
+   and block-ELL (#3) kernels on row shards (shard_rows, rank 0 and 1 of 2)
+   of the K=30,000 operands of (b), against their plain versions (and the
+   library call on rank 0's shard); (a)
+   sig_sdp_mmw_torch.entry.dryrun_multichip(4): 4 ranks on cuda:0 over
+   gloo, mesh batch 2 x graph 2, the batched dense solve with rounding (rem
+   0, verified, every instance) and the graph-sharded (8, 8)-block probe
+   (rem 0), every rank's outputs the same bits, every operand on cuda,
+   kernel #3 launched on every rank (counts printed per rank); (b)
+   experiments/sharded_large.py at its defaults (cell 100, K=30,000, nit
+   30) over 2 ranks on cuda:0 (gloo), once with the tool's float32
+   block-ELL operands and once with bf16 flat operands (flat_group=8):
+   equal to the one-process solve (|dub|, max|dX_half| < 1e-3, the
+   factor's columns signed alike), rem 0,
+   verified, ranks bit-equal, MB per rank and balance, kernel #3 (and #1
+   for bf16) launched on every rank; (c) the same solves in an NCCL world
+   of one rank (graph 1), bit-for-bit equal to the one-process solve (the
+   mesh makes no collective at graph 1), and one all-gather of a CUDA
+   tensor through NCCL in a world of one, checked against its input; (d)
+   a device trace of (b)'s bf16 solve: the device time of the kernels and
+   of the copies (gloo moves the gathered rows through the host), the
+   host time in the all-gathers and MB gathered per iteration.
 Each phase prints its seconds ("[time] phase N").
 
 Every kernel counts its launches; each path's counts are set to 0 just
@@ -115,8 +138,9 @@ SpMM bench; it must launch 0 times on the 100k and million-link paths,
 and no kernel may launch on the dense path, as in the JAX package).
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  The line before the last is the
-kernels' JSON record (each kernel with its phase-6 generic launches and the
-generic block shapes checked in phase 2), the last ``{"ok": true,
+kernels' JSON record (each kernel with its phase-6 generic launches, the
+generic block shapes checked in phase 2 and its phase-8 launches per rank),
+the last ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -156,6 +180,9 @@ E2E_Z_REF = 16        # E2E_LARGE.json (the JAX tool on cell 183)
 # The JAX tool's heuristic rows at that Z (E2E_LARGE.json).
 E2E_HEUR_REF = {"mgain": "rem 0, verified", "mrand": "rem 19, not verified"}
 MIDK_CELL, MIDK_BLOCK = 40, 32
+# Phase 8: tools/sharded_large.py's default cell (K=30,000) and the D of
+# its solve there (Z = lb + 4 = 18 slots, D_pad 48).
+SHARD_CELL, SHARD_D = 100, 48
 GENERIC_D = 48
 REPLACES = {"bsr_spmm_flat": "sig_sdp_mmw_tpu/ops/bcsr.py:334",
             "bcsr_spmm_ell": "sig_sdp_mmw_tpu/ops/bcsr.py:183",
@@ -672,6 +699,141 @@ def midk_phase(tb, e2e_main) -> dict:
     return out
 
 
+def nccl_gather_rank() -> dict:
+    """A rank of phase 8 (c)'s direct collective: ``all_gather_into_tensor``
+    of a CUDA tensor over the world; whether it holds every rank's part."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x + r)
+    want = torch.cat([x + k for k in range(n)])
+    return dict(backend=dist.get_backend(), world=n,
+                ok=bool(torch.equal(out, want)))
+
+
+def sharded_phase(tb, tmp: str) -> dict:
+    """Phase 8, the sharded path: the kernels on row shards against their
+    plain versions, then (a) the 4-rank dryrun, (b) sharded_large over 2
+    ranks in both layouts, (c) the NCCL world of one, (d) the trace of
+    (b)'s bf16 solve.  Returns each kernel's launches per rank."""
+    import numpy as np
+    import torch
+
+    from sig_sdp_mmw_torch.entry import dryrun_multichip
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.experiments import sharded_large
+    from sig_sdp_mmw_torch.parallel.distributed import launch
+
+    t0 = time.time()
+    S, Q, _ = LargeEnv(SHARD_CELL, RHO, seed=SEED).generate_state_csr()
+    nr = -(-S.shape[0] // 256) * 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for layout, key in (("bf16_flat", "s_flat"), ("f32_ell", "s_blocks")):
+        full = sharded_large.layout_operands(S, Q, 128, nr, layout)
+        for g in range(2):
+            mat = getattr(tb.shard_rows(full, g, 2), key).to("cuda")
+            V = torch.randn((mat.ncols, SHARD_D), generator=gen,
+                            device="cuda")
+            fn, plain = ((tb.bsr_spmm_flat, tb.bsr_spmm_flat_reference)
+                         if key == "s_flat" else
+                         (tb.bcsr_spmm, tb.bcsr_spmm_reference))
+            name = f"shard {g}/2 {layout} S~ D={SHARD_D}"
+            log(f"[8 kernel] {name}: rows {mat.nrows} of {mat.ncols}")
+            compare(name, mat, V, lambda: fn(mat, V), lambda: plain(mat, V),
+                    library=g == 0)
+            del mat, V
+        del full
+    torch.cuda.empty_cache()
+    log(f"[8 kernel] row shards [{time.time() - t0:.1f}s]")
+
+    # (a) the dryrun: 4 ranks sharing the card over gloo.
+    t0 = time.time()
+    dry = dryrun_multichip(4, device="cuda")
+    per_rank = dry["launches_per_rank"]
+    log(f"[8 dryrun] mesh {dry['mesh']} backend {dry['backend']} rems "
+        f"{dry['rems']} verified {dry['verified']} sparse ub "
+        f"{dry['sparse_ub']:.4f} rem {dry['sparse_rem']}; launches per rank "
+        f"{json.dumps(per_rank)}; operands {dry['operand_devices']} "
+        f"[{time.time() - t0:.1f}s]")
+    if dry["mesh"] != {"batch": 2, "graph": 2} or dry["backend"] != "gloo":
+        raise AssertionError(f"dryrun mesh {dry['mesh']} over "
+                             f"{dry['backend']}")
+    if dry["operand_devices"] != ["cuda"]:
+        raise AssertionError(f"dryrun operands on {dry['operand_devices']}")
+    if not all(r["bcsr_spmm"] > 0 for r in per_rank):
+        raise AssertionError("kernel #3 did not launch on every rank")
+    launches = {"dryrun": per_rank}
+
+    # (b) the tool's configuration over 2 ranks on the card, (d) its trace.
+    t0 = time.time()
+    layouts = ("f32_ell", "bf16_flat")
+    rec = sharded_large.main(graph=2, layouts=layouts, device="cuda",
+                             backend="gloo",
+                             trace_dir=os.path.join(tmp, "trace"))
+    log(f"[8 sharded] K={rec['K']} nnz(S)={rec['nnz_S']} Z={rec['Z']} "
+        f"D_pad={rec['D_pad']} rows {rec['rows_padded']} phases_s "
+        f"{json.dumps(rec['phases_s'])} [{time.time() - t0:.1f}s]")
+    for layout in layouts:
+        r = rec[layout]
+        log(f"[8 sharded] {layout}: " + json.dumps(
+            {k: r[k] for k in ("ub_sharded", "ub_single", "max_abs_dX_half",
+                               "max_abs_dX_half_sign_aligned",
+                               "max_abs_dGram", "equal", "ranks_bit_equal",
+                               "rounding_rem",
+                               "verified", "bytes_per_rank_mb", "balance",
+                               "rows_per_rank", "solve_sharded_s",
+                               "solve_single_s", "collective_mb_per_solve",
+                               "collective_mb_per_iteration",
+                               "gathers_per_solve", "launches_per_rank",
+                               "operand_devices")}))
+        launches[layout] = r["launches_per_rank"]
+        want = ("bsr_spmm_flat", "bcsr_spmm") if layout == "bf16_flat" \
+            else ("bcsr_spmm",)
+        if not (r["equal"] and r["rounding_rem"] == 0 and r["verified"]["ok"]
+                and r["ranks_bit_equal"]):
+            raise AssertionError(f"sharded {layout}: not equal, feasible "
+                                 "and the same on every rank")
+        if r["operand_devices"] != ["cuda"]:
+            raise AssertionError(f"sharded {layout}: operands on "
+                                 f"{r['operand_devices']}")
+        if not all(n[k] > 0 for n in r["launches_per_rank"] for k in want):
+            raise AssertionError(f"sharded {layout}: {want} not launched on "
+                                 "every rank")
+    tr = rec["bf16_flat"]["trace"]
+    log(f"[8 trace] bf16_flat rank 0: kernels {tr['kernels_ms']:.3f} ms "
+        f"(SpMM {tr['spmm_kernels_ms']:.3f}), copies {tr['copies_ms']:.3f} "
+        f"ms, copies' share of device time {tr['copy_share_of_device']}; "
+        f"all-gathers {tr['gather_host_ms']:.1f} ms on the host, "
+        f"{tr['gather_share_of_wall']:.3f} of the solve's wall time; "
+        f"{rec['bf16_flat']['collective_mb_per_iteration']:.3f} MB gathered "
+        "per iteration")
+
+    # (c) NCCL, a world of one rank: the one-process solve, bit for bit.
+    t0 = time.time()
+    one = sharded_large.main(graph=1, layouts=layouts, device="cuda",
+                             backend="nccl")
+    for layout in layouts:
+        r = one[layout]
+        log(f"[8 nccl] {layout}: graph 1 bit-equal to one process "
+            f"{r['bit_equal_single']} (ub {r['ub_sharded']!r} vs "
+            f"{r['ub_single']!r}), rem {r['rounding_rem']}")
+        if not r["bit_equal_single"]:
+            raise AssertionError(f"nccl world of one, {layout}: not "
+                                 "bit-equal to the one-process solve")
+    # At graph 1 the mesh returns before any collective: gather directly.
+    g = launch("chip_smoke:nccl_gather_rank", 1, backend="nccl",
+               device="cuda")[0]
+    log(f"[8 nccl] all_gather_into_tensor of a CUDA tensor, world "
+        f"{g['world']} over {g['backend']}: equal {g['ok']}")
+    if not (g["ok"] and g["backend"] == "nccl"):
+        raise AssertionError(f"nccl all-gather: {g}")
+    log(f"[8 nccl] [{time.time() - t0:.1f}s]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1066,7 +1228,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         journal = journal_phase(tb, tmp)
     log(f"[time] phase 7 {time.time() - t_phase:.1f}s")
+
+    # ---- 8. the sharded path -----------------------------------------------
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = sharded_phase(tb, tmp)
+    log(f"[time] phase 8 {time.time() - t_phase:.1f}s")
     log(f"[done] {time.time() - t_start:.1f}s")
+
+    def per_rank(name):
+        return {run: [n[name] for n in ranks]
+                for run, ranks in sharded.items()}
 
     def entry(name, launches, case, source, generic_launches):
         return {"name": name, "route": "cuda",
@@ -1077,7 +1249,9 @@ def main() -> int:
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"],
                 "generic_launches": generic_launches,
-                "block_shapes": generic[name]}
+                "block_shapes": generic[name],
+                "sharded_launches_per_rank": per_rank(
+                    "bcsr_spmm" if name == "bcsr_spmm_ell" else name)}
 
     log(f"[7 summary] {json.dumps(journal)}")
     log(f"[6 summary] {json.dumps(midk)}")

@@ -116,6 +116,15 @@ class EllSlim(TensorFields):
         return self.a_i.shape[0]
 
 
+def ell_slim(ell: EllState) -> EllSlim:
+    """Slim view of a built EllState (reductions over s_vals on its
+    device)."""
+    return EllSlim(S_sum=torch.sum(ell.s_vals, dim=1),
+                   row2=torch.sum(ell.s_vals * ell.s_vals, dim=1),
+                   a_i=ell.a_i, a_j=ell.a_j, a_mask=ell.a_mask,
+                   h_max=ell.h_max, mask=ell.mask, K=ell.K)
+
+
 def _round_up(x: int, m: int) -> int:
     return ((max(x, 1) + m - 1) // m) * m
 
@@ -288,6 +297,16 @@ def ell_from_scipy(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
         q_cols=t(q_cols), q_eidx=t(q_eidx), q_mask=t(q_mask),
         q_gain=t(q_gain), diag_S=t(diag_S), h_max=t(hm), mask=t(mask),
         K=K, lb_cache=lb_cache, ub_cache=ub_cache).to(device)
+
+
+def ell_from_sig_state(state, **kw) -> EllState:
+    """Interop from the dense container (testing at small K): the ELL state
+    of its valid users, on its device unless ``device`` is given (``kw`` as
+    in :func:`ell_from_scipy`)."""
+    from sig_sdp_mmw_torch.core.problem import state_to_scipy
+
+    kw.setdefault("device", state.mask.device)
+    return ell_from_scipy(*state_to_scipy(state), **kw)
 
 
 def from_jax_arrays(arrays: Mapping, device="cpu") -> EllState:

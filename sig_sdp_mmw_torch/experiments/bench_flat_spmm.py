@@ -115,12 +115,13 @@ def _block_shape(mat):
 
 
 def bytes_needed(mat, D: int) -> int:
-    """Device-memory bytes ``mat @ V`` needs for a [nrows, D] float32 V:
+    """Device-memory bytes ``mat @ V`` needs for a [ncols, D] float32 V:
     each real block once (in its stored dtype), V read once and the float32
-    output written once."""
+    [nrows, D] output written once."""
     Br, Bc = _block_shape(mat)
     nblk = int(real_slots(mat).sum())
-    return nblk * Br * Bc * mat.blocks.element_size() + 2 * mat.nrows * D * 4
+    return (nblk * Br * Bc * mat.blocks.element_size()
+            + (mat.ncols + mat.nrows) * D * 4)
 
 
 def v_gather_bytes(mat, D: int) -> int:
@@ -176,7 +177,7 @@ def library_operand(mat, dtype) -> torch.Tensor:
                        device=mask.device)
     crow[1:] = torch.cumsum(counts, 0)
     return torch.sparse_bsr_tensor(crow, mat.bcols[mask].int(), vals.to(dtype),
-                                   size=(mat.nrows, mat.nrows))
+                                   size=(mat.nrows, mat.ncols))
 
 
 def library_csr_operand(mat, dtype) -> torch.Tensor:
@@ -221,7 +222,7 @@ def library_csr_operand(mat, dtype) -> torch.Tensor:
     crow = torch.zeros(mat.nrows + 1, dtype=torch.int64, device=dev)
     crow[1:] = torch.cumsum((counts * Bc).repeat_interleave(Br), 0)
     return torch.sparse_csr_tensor(crow.to(itype), cols, values,
-                                   size=(mat.nrows, mat.nrows))
+                                   size=(mat.nrows, mat.ncols))
 
 
 def library_spmm(mat, V: torch.Tensor, iters: int) -> dict:

@@ -51,51 +51,90 @@ class MMWOutput(TensorFields):
     X_avgd: torch.Tensor     # [Kp, Kp] averaged primal (diag included)
 
 
-def _masked_softmax_3(eD, eF, eH, mD, mF, mH):
+def _softmax_3(eD, eF, eH, mD, mF, mH, graph=None):
     """Softmax over the concatenation of three masked violation blocks;
-    masked entries get zero weight."""
+    masked entries get zero weight.  With ``graph``, ``eF`` and ``mF`` are
+    this rank's rows of the F block, whose max and sum are taken over the
+    axis.  Returns the three weights, the shift M and the denominator."""
     eD = torch.where(mD, eD, -torch.inf)
     eF = torch.where(mF, eF, -torch.inf)
     eH = torch.where(mH, eH, -torch.inf)
-    M = torch.maximum(torch.max(eD), torch.maximum(torch.max(eF),
-                                                   torch.max(eH)))
+    MF = torch.max(eF)
+    if graph is not None:
+        MF = graph.max_over(MF)
+    M = torch.maximum(torch.max(eD), torch.maximum(MF, torch.max(eH)))
     xD, xF, xH = torch.exp(eD - M), torch.exp(eF - M), torch.exp(eH - M)
-    den = torch.sum(xD) + torch.sum(xF) + torch.sum(xH)
-    return xD / den, xF / den, xH / den
+    sF = torch.sum(xF)
+    if graph is not None:
+        sF = graph.sum_over(sF)
+    den = torch.sum(xD) + sF + torch.sum(xH)
+    return xD / den, xF / den, xH / den, M, den
 
 
-def _violations(X_mdiag, X_offdi, op: MMWOperands, Z, K):
-    """Constraint violations of a primal iterate."""
+def _masked_softmax_3(eD, eF, eH, mD, mF, mH):
+    """Softmax over the concatenation of three masked violation blocks;
+    masked entries get zero weight."""
+    return _softmax_3(eD, eF, eH, mD, mF, mH)[:3]
+
+
+_ALL = slice(None)
+
+
+def _diag_rows(v, rows: slice, Kp: int):
+    """Rows ``rows`` of ``torch.diag`` of a [Kp] vector (``v`` holds those
+    rows' entries)."""
+    out = torch.zeros((v.shape[0], Kp), dtype=v.dtype, device=v.device)
+    out.diagonal(rows.start or 0).copy_(v)
+    return out
+
+
+def _violations(X_mdiag, X_offdi, op: MMWOperands, Z, K, rows=_ALL):
+    """Constraint violations of a primal iterate: eD of ``X_mdiag``, eF and
+    eH of rows ``rows`` (``X_offdi`` and ``op``'s [Kp, Kp] operands then
+    hold only those rows)."""
     eD = (X_mdiag - 1.0) / (1.0 - 1.0 / K)
     eF = (X_offdi + 1.0 / (Z - 1.0)) / (1.0 / (K * (Z - 1.0)) + 0.5)
     AHX = torch.sum(op.St * X_offdi, dim=1)
-    eH = (AHX * (Z - 1.0) / Z - (op.h_max - op.S_sum / Z)) / op.norm_H
+    eH = ((AHX * (Z - 1.0) / Z - (op.h_max[rows] - op.S_sum[rows] / Z))
+          / op.norm_H[rows])
     return eD, eF, eH
 
 
-def _max_violation(eD, eF, eH, op: MMWOperands):
-    """The largest violation over the valid constraints."""
+def _max_violation(eD, eF, eH, op: MMWOperands, rows=_ALL):
+    """The largest violation over the valid constraints (of rows ``rows``,
+    which ``op.asso_ut`` then holds)."""
+    m = op.mask[rows]
     return torch.maximum(
-        torch.max(torch.where(op.mask, eD, -torch.inf)),
+        torch.max(torch.where(m, eD, -torch.inf)),
         torch.maximum(torch.max(torch.where(op.asso_ut, eF, -torch.inf)),
-                      torch.max(torch.where(op.mask, eH, -torch.inf))))
+                      torch.max(torch.where(m, eH, -torch.inf))))
 
 
-def _loss_matrix(YD, YF, YH, op: MMWOperands, Z, K, Kp):
-    """Dense loss L = LD + LF + LH for a dual weight vector."""
+def _loss_rows(YD, YF, YFt, sum_YF, YH, op: MMWOperands, StT, Z, K, Kp,
+               rows=_ALL):
+    """Rows ``rows`` of the dense loss L = LD + LF + LH for a dual weight
+    vector.  ``YF``, ``YFt``, ``op.St`` and ``StT`` hold those rows of the F
+    weights, of their transpose, of S̃ and of S̃ᵀ; ``sum_YF`` is the sum of
+    every F weight."""
     ld = (YD - torch.sum(YD) / K) / (1.0 - 1.0 / K)             # LD diagonal
-    YF_m = 0.5 * (YF + YF.T)
+    YF_m = 0.5 * (YF + YFt)
     cF = 1.0 / (0.5 + 1.0 / (K * (Z - 1.0)))
-    lf_diag = torch.sum(YF) / (K * (Z - 1.0)) * cF
+    lf_diag = sum_YF / (K * (Z - 1.0)) * cF
     LF = YF_m * cF
     coef = YH / op.norm_H
-    Mh = coef[:, None] * op.St
-    LH = (Mh + Mh.T) * (Z - 1.0) / (2.0 * Z)
+    Mh = coef[rows, None] * op.St
+    MhT = StT * coef[None, :]
+    LH = (Mh + MhT) * (Z - 1.0) / (2.0 * Z)
     lh_diag = -torch.sum((op.h_max / K - op.S_sum / (K * Z)) * coef)
     diag = ld + lf_diag + lh_diag * torch.ones((Kp,), dtype=YD.dtype,
                                                device=YD.device)
     diag = torch.where(op.mask, diag, 0.0)
-    return LF + LH + torch.diag(diag)
+    return LF + LH + _diag_rows(diag[rows], rows, Kp)
+
+
+def _loss_matrix(YD, YF, YH, op: MMWOperands, Z, K, Kp):
+    """Dense loss L = LD + LF + LH for a dual weight vector."""
+    return _loss_rows(YD, YF, YF.T, torch.sum(YF), YH, op, op.St.T, Z, K, Kp)
 
 
 def mmw_default_lanczos_m(eta: float, nit: int) -> int:
@@ -120,12 +159,13 @@ def _sketch(draws, i: int, op: MMWOperands, D_pad: int, D_act: int, dtype):
     return torch.where(rn > 0, G / torch.where(rn > 0, rn, 1.0), 0.0)
 
 
-def _primal(op: MMWOperands, X_half, K):
-    """(X_mdiag, X_offdi) of the trace-normalized sketch factor."""
+def _primal(op: MMWOperands, X_half, K, rows=_ALL):
+    """(X_mdiag, X_offdi) of the trace-normalized sketch factor: the whole
+    diagonal, and rows ``rows`` (which ``op.xpat`` then holds) of the rest."""
     md = torch.sum(X_half * X_half, dim=1)
     X_trace = torch.sum(md) / K
     X_mdiag = torch.where(op.mask, md / X_trace, 0.0)
-    Gram = (X_half @ X_half.T) / X_trace
+    Gram = (X_half[rows] @ X_half.T) / X_trace
     return X_mdiag, torch.where(op.xpat, Gram, 0.0)
 
 
@@ -139,12 +179,39 @@ def _factor(X_avgd, op: MMWOperands, Z: float, K: int, rank_radio: int,
     return torch.where(op.mask[:, None], X_half, 0.0)
 
 
+class _RowShardedMatrix:
+    """A symmetric [n, n] matrix whose rows are split over a mesh axis:
+    ``A @ M`` is this rank's rows times M, all-gathered (the matmul
+    :func:`sig_sdp_mmw_torch.ops.rsvd.randomized_symmetric_lowrank`
+    takes)."""
+
+    def __init__(self, local: torch.Tensor, graph, n: int):
+        self.local, self.graph = local, graph
+        self.shape, self.dtype = (n, n), local.dtype
+
+    def __matmul__(self, M: torch.Tensor) -> torch.Tensor:
+        return self.graph.gather_rows(self.local @ M, self.shape[0])
+
+
 def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
               rank_radio: int = 2, D_pad: int, rank_pad: int, draws,
               lanczos_m: Optional[int] = None, log_gap: bool = False,
-              gap_lanczos_m: int = 32) -> MMWOutput:
+              gap_lanczos_m: int = 32, graph=None) -> MMWOutput:
     """Run the MMW dual/loss/primal loop for ``Z`` slots on the state's
-    device.  ``draws``: the random draws (``sketch``, ``omega``, ``gap``)."""
+    device.  ``draws``: the random draws (``sketch``, ``omega``, ``gap``).
+
+    ``graph`` — the graph axis of a mesh
+    (:class:`sig_sdp_mmw_torch.parallel.mesh.MeshAxis`): the rows of every
+    [Kp, Kp] array of the solve (S̃, S̃ᵀ and the patterns of ``op``, the
+    primal's off-diagonal, the F violations and weights, ``L_accu`` and the
+    averaged primal) are split over its ranks (``graph.rows(Kp)``); each
+    rank keeps only its rows.  Every product with them is the rank's rows
+    followed by one all-gather, and the F block's max and sum are gathered
+    per rank and combined in rank order.  The [Kp] vectors and the [Kp, D]
+    sketch factor stay replicated, the same bits on every rank.  The
+    ``state`` passed in is the caller's, whole.  None: one process."""
+    from sig_sdp_mmw_torch.parallel.mesh import MeshAxis
+
     Kp, K = state.Kp, state.K
     dtype = state.S.dtype
     device = state.S.device
@@ -154,65 +221,95 @@ def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
     D_act = int(Zh * rank_radio)                 # active sketch columns
     if lanczos_m is None:
         lanczos_m = mmw_default_lanczos_m(eta, nit)
+    graph = graph if graph is not None else MeshAxis()
+    r0, r1 = graph.rows(Kp)
+    rows = slice(r0, r1)
+
+    def own(x):
+        """This rank's rows of a [Kp, Kp] operand (a copy when sharded,
+        so the whole one is freed)."""
+        return x[rows].clone() if graph.size > 1 else x[rows]
+
+    StT, asso_t = own(op.St.T), own(op.asso_ut.T)
+    op = dataclasses.replace(op, St=own(op.St), asso_ut=own(op.asso_ut),
+                             xpat=own(op.xpat))
     mD, mF, mH = op.mask, op.asso_ut, op.mask
+    mF_sym = mF | asso_t          # F pairs in either orientation, by rows
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    e_accu_D, e_accu_F, e_accu_H = zeros(Kp), zeros(Kp, Kp), zeros(Kp)
-    L_accu = zeros(Kp, Kp)
+    def softmax(eD, eF, eH):
+        """(YD, YF, YFt, sum of YF, YH): the dual weights, with this
+        rank's rows of the F weights and of their transpose.  ``eF`` holds
+        the F violations of both orientations (X_offdi is symmetric), so a
+        rank reads its rows of YFᵀ from its own rows; in one process YFᵀ is
+        YF.T itself."""
+        YD, YF, YH, M, den = _softmax_3(eD, eF, eH, mD, mF, mH, graph)
+        YFt = (YF.T if graph.size == 1
+               else torch.where(asso_t, torch.exp(eF - M), 0.0) / den)
+        return YD, YF, YFt, graph.sum_over(torch.sum(YF)), YH
+
+    def local_ub(Xa):
+        """Largest violation of the averaged primal (rows held by this
+        rank), over every rank."""
+        dXa = torch.diagonal(Xa, r0)
+        u = _max_violation(*_violations(dXa, Xa - _diag_rows(dXa, rows, Kp),
+                                        op, Zf, K, rows), op, rows)
+        return graph.max_over(u)
+
+    n_loc = r1 - r0
+    e_accu_D, e_accu_F, e_accu_H = zeros(Kp), zeros(n_loc, Kp), zeros(Kp)
+    L_accu = zeros(n_loc, Kp)
     X_mdiag = torch.where(op.mask, 1.0, 0.0).to(dtype)     # X0 = I
-    X_offdi = zeros(Kp, Kp)
-    X_avgd = zeros(Kp, Kp)
-    YaD, YaF, YaH = zeros(Kp), zeros(Kp, Kp), zeros(Kp)
+    X_offdi = zeros(n_loc, Kp)
+    X_avgd = zeros(n_loc, Kp)
+    YaD, YaF, YaFt, YaH = zeros(Kp), zeros(n_loc, Kp), zeros(n_loc, Kp), \
+        zeros(Kp)
     gap = zeros(nit if log_gap else 0, 2)
     # Initial Y: uniform over the valid constraints = softmax of zeros.
-    YD, YF, YH = _masked_softmax_3(zeros(Kp), zeros(Kp, Kp), zeros(Kp),
-                                   mD, mF, mH)
+    YD, YF, YFt, sYF, YH = softmax(zeros(Kp), zeros(n_loc, Kp), zeros(Kp))
 
     for i in range(nit):
         # ---- averaging (pre-update) ---------------------------------------
-        X_avgd = X_avgd + X_offdi + torch.diag(X_mdiag)
-        YaD, YaF, YaH = YaD + YD, YaF + YF, YaH + YH
+        X_avgd = X_avgd + X_offdi + _diag_rows(X_mdiag[rows], rows, Kp)
         if log_gap:
+            YaD, YaF, YaFt, YaH = YaD + YD, YaF + YF, YaFt + YFt, YaH + YH
             n = float(i + 1)
-            Xa = X_avgd / n
-            dXa = torch.diagonal(Xa)
-            ub = _max_violation(*_violations(dXa, Xa - torch.diag(dXa), op,
-                                             Zf, K), op)
-            L_avg = _loss_matrix(YaD / n, YaF / n, YaH / n, op, Zf, K, Kp)
+            L_avg = _loss_rows(YaD / n, YaF / n, YaFt / n,
+                               graph.sum_over(torch.sum(YaF / n)), YaH / n,
+                               op, StT, Zf, K, Kp, rows)
             lam_min, _ = lanczos_extreme_eigs(
-                lambda V: L_avg @ V, draws.gap(i, (Kp, 1), dtype),
-                m=gap_lanczos_m)
-            gap[i, 0] = ub
+                lambda V: graph.gather_rows(L_avg @ V, Kp),
+                draws.gap(i, (Kp, 1), dtype), m=gap_lanczos_m)
+            gap[i, 0] = local_ub(X_avgd / n)
             gap[i, 1] = lam_min * K
 
         # ---- dual step ----------------------------------------------------
-        eD, eF, eH = _violations(X_mdiag, X_offdi, op, Zf, K)
+        eD, eF, eH = _violations(X_mdiag, X_offdi, op, Zf, K, rows)
         e_accu_D = e_accu_D + eta * eD
-        e_accu_F = e_accu_F + eta * torch.where(mF, eF, 0.0)
-        e_accu_H = e_accu_H + eta * eH
-        YD, YF, YH = _masked_softmax_3(e_accu_D, e_accu_F, e_accu_H,
-                                       mD, mF, mH)
+        e_accu_F = e_accu_F + eta * torch.where(mF_sym, eF, 0.0)
+        e_accu_H = e_accu_H + eta * graph.gather_rows(eH, Kp)
+        YD, YF, YFt, sYF, YH = softmax(e_accu_D, e_accu_F, e_accu_H)
 
         # ---- loss accumulation --------------------------------------------
-        L_accu = L_accu - eta * _loss_matrix(YD, YF, YH, op, Zf, K, Kp)
+        L_accu = L_accu - eta * _loss_rows(YD, YF, YFt, sYF, YH, op, StT, Zf,
+                                           K, Kp, rows)
 
         # ---- primal via sketched expm -------------------------------------
         G = _sketch(draws, i, op, D_pad, D_act, dtype)
         X_half, _ = lanczos_expm_multiply(
-            lambda V: 0.5 * (L_accu @ V), G, m=lanczos_m,
-            small_method="taylor_ss", norm_bound=eta * nit)
-        X_mdiag, X_offdi = _primal(op, X_half, K)
+            lambda V: 0.5 * graph.gather_rows(L_accu @ V, Kp), G,
+            m=lanczos_m, small_method="taylor_ss", norm_bound=eta * nit)
+        X_mdiag, X_offdi = _primal(op, X_half, K, rows)
 
     # ---- final averaged primal + factorization ----------------------------
     X_avgd = X_avgd / nit
-    dXa = torch.diagonal(X_avgd)
-    ub_final = _max_violation(*_violations(dXa, X_avgd - torch.diag(dXa), op,
-                                           Zf, K), op)
-    X_half = _factor(X_avgd, op, Zh, K, rank_radio, rank_pad, draws)
+    ub_final = local_ub(X_avgd)
+    X_half = _factor(_RowShardedMatrix(X_avgd, graph, Kp), op, Zh, K,
+                     rank_radio, rank_pad, draws)
     return MMWOutput(X_half=X_half, ub_final=ub_final, gap_log=gap,
-                     X_avgd=X_avgd)
+                     X_avgd=graph.gather_rows(X_avgd, Kp))
 
 
 def make_mmw_phase_fns(*, nit: int, eta: float, rank_radio: int, D_pad: int,

@@ -18,10 +18,17 @@ bcsr_spmm` (the block-ELL CUDA kernel on the card).  The iteration loop is a
 Python loop that can run in segments passing a carry (the million-link
 driver's mode); random draws come from a draws object
 (:mod:`sig_sdp_mmw_torch.utils.draws`), by absolute iteration index.
+
+With a mesh's graph axis (``graph``), each rank holds a row shard of the
+block operands (:func:`sig_sdp_mmw_torch.ops.bcsr.shard_rows`) and of the
+O(nnz) accumulators; every operator apply is the product on its rows
+followed by one all-gather, and the O(K) vectors and [Kp, D] blocks stay
+replicated, bit for bit the same on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Optional
@@ -46,20 +53,19 @@ class MMWEllOutput(TensorFields):
     gap_log: torch.Tensor   # [nit, 2] (UB, LB) if log_gap else [0, 2]
 
 
-def _q_apply(ell, edge_vals, V):
-    """Symmetric association-edge operator, gather-only:
-    out[i] += sum_n edge_vals[q_eidx[i,n]] * V[q_cols[i,n]]."""
-    ev = torch.where(ell.q_mask, edge_vals[ell.q_eidx], 0.0)   # [Kp, degQ]
-    return torch.einsum("kn,knf->kf", ev, V[ell.q_cols])
+def _q_apply(ell, rows: slice, edge_vals, V):
+    """Rows ``rows`` of the symmetric association-edge operator,
+    gather-only: out[i] += sum_n edge_vals[q_eidx[i,n]] * V[q_cols[i,n]]."""
+    ev = torch.where(ell.q_mask[rows], edge_vals[ell.q_eidx[rows]], 0.0)
+    return torch.einsum("kn,knf->kf", ev, V[ell.q_cols[rows]])
 
 
-def _edge_dots(ell, cols, X_half, inv_trace):
-    """[Kp, deg] pattern-restricted Gram values <X_half[k], X_half[cols[k,d]]>,
-    slot by slot."""
-    out = torch.zeros((ell.Kp, cols.shape[1]), dtype=X_half.dtype,
-                      device=X_half.device)
+def _edge_dots(cols, X_rows, X_half, inv_trace):
+    """[n, deg] pattern-restricted Gram values <X_rows[k],
+    X_half[cols[k,d]]> of a run of rows, slot by slot."""
+    out = torch.zeros(cols.shape, dtype=X_half.dtype, device=X_half.device)
     for d in range(cols.shape[1]):
-        out[:, d] = torch.sum(X_half * X_half[cols[:, d]], dim=1) * inv_trace
+        out[:, d] = torch.sum(X_rows * X_half[cols[:, d]], dim=1) * inv_trace
     return out
 
 
@@ -77,7 +83,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
                   gram_mode: str = "auto",
                   spmm_row_chunk: Optional[int] = None, carry_in=None,
                   it_start: int = 0, num_steps: Optional[int] = None,
-                  return_carry: bool = False):
+                  return_carry: bool = False, graph=None):
     """MMW feasibility solve for Z slots on the sparse state.
 
     ``ell``: :class:`sig_sdp_mmw_torch.core.ell.EllState`, or ``EllSlim``
@@ -89,11 +95,22 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     and of the epilogue's (bounds the plain versions' transients at large
     K; the CUDA kernel needs no chunks).
 
+    ``graph`` — the graph axis of a mesh
+    (:class:`sig_sdp_mmw_torch.parallel.mesh.MeshAxis`): this rank computes
+    the rows of its part (``graph.rows``: of the block-rows with ``bcsr``,
+    which must then be this rank's row shard,
+    :func:`sig_sdp_mmw_torch.ops.bcsr.shard_rows`; of the Kp rows of the
+    replicated EllState without), and every operator apply is the product
+    on those rows followed by one all-gather over the axis.  The O(nnz)
+    accumulators (the Gram, the epilogue's averaged blocks) hold only the
+    rank's rows; every O(K) vector and [Kp, D] block is replicated, the
+    same bits on every rank.  None: one process (the whole operator).
+
     ``gram_mode`` — how the averaged primal accumulates on the S̃ pattern:
     ``"block"``, a float32 [Kbr, Br, maxblk*Bc] accumulator updated by one
     batched product per iteration; ``"edge"``, the O(nnz) per-edge vector of
     :func:`sig_sdp_mmw_torch.ops.bcsr.bcsr_edge_gram_accum`; ``"auto"``,
-    block if that accumulator is at most 2 GiB.
+    block if that accumulator (of the whole operand) is at most 2 GiB.
 
     Segmented execution: run ``num_steps`` iterations (default ``nit``)
     from absolute index ``it_start``, starting from ``carry_in`` (a carry
@@ -104,6 +121,9 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     holds every accumulator the epilogue reads; its Gram accumulator and gap
     log are updated in place.
     """
+    from sig_sdp_mmw_torch.parallel.mesh import MeshAxis
+    from sig_sdp_mmw_torch.utils.profiling import annotate
+
     Kp = ell.Kp
     K = ell.K
     E_pad = ell.E_pad
@@ -115,6 +135,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     device = ell.mask.device
     Zf = torch.tensor(float(Z), dtype=dtype, device=device)
     mask, a_mask = ell.mask, ell.a_mask
+    # Named spans of the local products when the operator is sharded.
+    span = annotate if graph is not None else (
+        lambda name: contextlib.nullcontext())
+    graph = graph if graph is not None else MeshAxis()
 
     if use_bcsr:
         from sig_sdp_mmw_torch.ops.bcsr import (BlockEll,
@@ -122,38 +146,90 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
                                                 bcsr_spmm, bcsr_spmm_transpose,
                                                 bsr_spmm_flat)
 
-        nrows = bcsr.s_blocks.nrows
-        padn = nrows - Kp
-        Brow = bcsr.s_blocks.Brow
-        Bcol = bcsr.s_blocks.B
-        Kbr = bcsr.s_blocks.Kb
+        sb = bcsr.s_blocks
+        nrows = sb.ncols            # the whole operand's padded rows
+        Brow, Bcol = sb.Brow, sb.B
+        unit, nunits = Brow, nrows // Brow
         Kbc = nrows // Bcol
-        maxblk = bcsr.s_blocks.bcols.shape[1]
+        maxblk = sb.bcols.shape[1]
         maxblkQ = bcsr.q_bcols.shape[1]
-        nnz_s = bcsr.nnz
+        nnz_s = bcsr.nnz            # of the rows held
         if gram_mode not in ("auto", "block", "edge"):
             raise ValueError(
                 f"gram_mode must be 'auto', 'block' or 'edge', got {gram_mode!r}")
         if gram_mode == "auto":
-            block_gram = Kbr * Brow * maxblk * Bcol * 4 <= 2 * 2**30
+            block_gram = nunits * Brow * maxblk * Bcol * 4 <= 2 * 2**30
         else:
             block_gram = gram_mode == "block"
+    else:
+        nrows, unit, nunits = Kp, 1, Kp
+    r0, r1 = graph.rows(nunits)
+    nloc = r1 - r0                  # block-rows (rows) held
+    if use_bcsr and sb.Kb != nloc:
+        raise ValueError(f"bcsr holds {sb.Kb} block-rows; part "
+                         f"{graph.index} of {graph.size} is [{r0}, {r1})")
+    R0, R1 = r0 * unit, r1 * unit
+    rows = slice(R0, R1)
+    padn = nrows - Kp
 
-        def padV(V):
-            return F.pad(V, (0, 0, 0, padn)) if padn else V.contiguous()
+    def padV(V):
+        return F.pad(V, (0, 0, 0, padn)) if padn else V.contiguous()
 
-        q_dtype = bcsr.s_blocks.blocks.dtype
+    def loc(v):
+        """This rank's rows of a replicated [Kp] vector (zero past Kp)."""
+        return (F.pad(v, (0, padn)) if padn else v)[rows]
 
-        def q_block_vals(edge_vals):
+    def gather(t):
+        """[Kp, ...] from every rank's rows of the padded row space."""
+        return graph.gather_rows(t, nunits, unit)[:Kp]
+
+    if use_bcsr:
+        q_dtype = sb.blocks.dtype
+
+        def q_vals(edge_vals):
             # In the block storage dtype, like the S̃ blocks.
-            flat = torch.zeros(Kbr * maxblkQ * Brow * Bcol, dtype=q_dtype,
+            flat = torch.zeros(nloc * maxblkQ * Brow * Bcol, dtype=q_dtype,
                                device=device)
             flat[bcsr.q_pos] = edge_vals[bcsr.q_eidx].to(q_dtype)
-            return flat.reshape(Kbr, Brow, maxblkQ, Bcol)
+            return flat.reshape(nloc, Brow, maxblkQ, Bcol)
 
-        def q_spmm(blocks, V):
+        def q_loc(blocks, Vp):
             return bcsr_spmm(BlockEll(bcols=bcsr.q_bcols, blocks=blocks,
-                                      nrows=nrows), padV(V))[:Kp]
+                                      nrows=nloc * Brow, ncols=nrows), Vp)
+
+        if bcsr.s_flat is not None:
+            def s_loc(Vp):
+                return bsr_spmm_flat(bcsr.s_flat, Vp)
+
+            def st_loc(Vp):
+                return bsr_spmm_flat(bcsr.st_flat, Vp)
+        else:
+            def s_loc(Vp):
+                return bcsr_spmm(sb, Vp, row_chunk=spmm_row_chunk)
+
+            if bcsr.st_blocks is not None:
+                def st_loc(Vp):
+                    return bcsr_spmm(bcsr.st_blocks, Vp,
+                                     row_chunk=spmm_row_chunk)
+            else:
+                # S̃ᵀ not stored: scatter through S̃ (each rank's rows add
+                # into every column block).
+                def st_loc(Vp):
+                    return graph.sum_over(bcsr_spmm_transpose(
+                        sb.bcols, sb.blocks, Vp[rows],
+                        row_chunk=spmm_row_chunk, ncols=nrows))[rows]
+    else:
+        def q_vals(edge_vals):
+            return edge_vals
+
+        def q_loc(edge_vals, V):
+            return _q_apply(ell, rows, edge_vals, V)
+
+        def s_loc(V):
+            return ell_spmm(ell.s_cols[rows], ell.s_vals[rows], V)
+
+        def st_loc(V):
+            return ell_spmm(ell.st_cols[rows], ell.st_vals[rows], V)
 
     if lanczos_m is None:
         lanczos_m = mmw_default_lanczos_m(eta, nit)
@@ -202,43 +278,21 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         h = coeff * (Zf - 1.0) / (2.0 * Zf)
         return d, f, h
 
-    if use_bcsr:
-        if bcsr.s_flat is not None:
-            def s_matvec(V):
-                return bsr_spmm_flat(bcsr.s_flat, padV(V))[:Kp]
+    def L_operator(d_accu, qv, hrow):
+        """V -> implicit L_accu @ V: this rank's rows, then the all-gather.
+        ``qv``: the association operator's values (``q_vals``)."""
+        dl, hl = loc(d_accu)[:, None], loc(hrow)[:, None]
 
-            def st_matvec(V):
-                return bsr_spmm_flat(bcsr.st_flat, padV(V))[:Kp]
-        else:
-            def s_matvec(V):
-                return bcsr_spmm(bcsr.s_blocks, padV(V),
-                                 row_chunk=spmm_row_chunk)[:Kp]
+        def apply(V):
+            Vp = padV(V)
+            with span("graph.local_product"):
+                t = dl * Vp[rows]
+                t = t + q_loc(qv, Vp)
+                t = t + hl * s_loc(Vp)
+                t = t + st_loc(padV(hrow[:, None] * V))
+            return gather(t)
 
-            if bcsr.st_blocks is not None:
-                def st_matvec(V):
-                    return bcsr_spmm(bcsr.st_blocks, padV(V),
-                                     row_chunk=spmm_row_chunk)[:Kp]
-            else:
-                # S̃ᵀ not stored: scatter through S̃.
-                def st_matvec(V):
-                    return bcsr_spmm_transpose(bcsr.s_blocks.bcols,
-                                               bcsr.s_blocks.blocks,
-                                               padV(V),
-                                               row_chunk=spmm_row_chunk)[:Kp]
-    else:
-        def s_matvec(V):
-            return ell_spmm(ell.s_cols, ell.s_vals, V)
-
-        def st_matvec(V):
-            return ell_spmm(ell.st_cols, ell.st_vals, V)
-
-    def L_apply(d_accu, q_matvec, hrow, V):
-        """Implicit L_accu @ V."""
-        t = d_accu[:, None] * V
-        t = t + q_matvec(V)
-        t = t + hrow[:, None] * s_matvec(V)
-        t = t + st_matvec(hrow[:, None] * V)
-        return t
+        return apply
 
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=device)
@@ -262,18 +316,17 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
                             device=device))
         if use_bcsr and block_gram:
             # Averaged primal as a float32 block accumulator (flat slot
-            # axis).
-            c["avg_blocks"] = torch.zeros((Kbr, Brow, maxblk * Bcol),
+            # axis), this rank's block-rows.
+            c["avg_blocks"] = torch.zeros((nloc, Brow, maxblk * Bcol),
                                           dtype=torch.float32, device=device)
         elif use_bcsr:
-            # Averaged primal on the S̃ pattern, per edge (last = padding
-            # sink).
+            # Averaged primal on the S̃ pattern, per edge of this rank's
+            # rows (last = padding sink).
             c["avg_edge"] = zeros(nnz_s + 1)
         else:
-            c["s_edge"] = torch.zeros(ell.s_cols.shape, dtype=dtype,
-                                      device=device)
-            c["st_edge"] = torch.zeros(ell.st_cols.shape, dtype=dtype,
-                                       device=device)
+            shape = (nloc, ell.s_cols.shape[1])
+            c["s_edge"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["st_edge"] = torch.zeros(shape, dtype=dtype, device=device)
             c["avg_s"] = torch.zeros_like(c["s_edge"])
             c["avg_st"] = torch.zeros_like(c["st_edge"])
 
@@ -294,17 +347,8 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             # LB = K * lambda_min of the averaged loss, through the same
             # implicit operator the solve uses.
             d_bar, f_bar, h_bar = loss_pieces(ya_D / n, ya_F / n, ya_H / n)
-            if use_bcsr:
-                fbar_blocks = q_block_vals(f_bar)
-
-                def q_matvec_bar(V):
-                    return q_spmm(fbar_blocks, V)
-            else:
-                def q_matvec_bar(V):
-                    return _q_apply(ell, f_bar, V)
-
             lam_min, _ = lanczos_extreme_eigs(
-                lambda V: L_apply(d_bar, q_matvec_bar, h_bar, V),
+                L_operator(d_bar, q_vals(f_bar), h_bar),
                 draws.gap(i, (Kp, 1), dtype), m=gap_lanczos_m)
             c["gap"][i, 0] = u
             c["gap"][i, 1] = lam_min * K
@@ -321,15 +365,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         d_accu = c["d_accu"] - eta * ld_d
         f_accu = c["f_accu"] - eta * lf_f
         hrow = c["hrow"] - eta * lh_h
-
-        if use_bcsr:
-            qvals = q_block_vals(f_accu)
-
-            def q_matvec(V):
-                return q_spmm(qvals, V)
-        else:
-            def q_matvec(V):
-                return _q_apply(ell, f_accu, V)
+        L_apply = L_operator(d_accu, q_vals(f_accu), hrow)
 
         # Primal: Gibbs-state sketch.
         G = draws.sketch(i, (Kp, D_pad), dtype)
@@ -338,7 +374,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         G = torch.where(rn > 0, G / torch.where(rn > 0, rn, 1.0), 0.0)
 
         X_half, _ = lanczos_expm_multiply(
-            lambda V: 0.5 * L_apply(d_accu, q_matvec, hrow, V), G,
+            lambda V: 0.5 * L_apply(V), G,
             m=lanczos_m, reorth=reorth, small_method="taylor_ss",
             norm_bound=eta * nit)
 
@@ -349,8 +385,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         xF = torch.where(a_mask,
                          ell_edge_gather_dot(ell.a_i, ell.a_j, X_half) * inv_tr,
                          0.0)
-        W = s_matvec(X_half)
-        xH = torch.sum(X_half * W, dim=1) * inv_tr
+        Xp = padV(X_half)
+        with span("graph.local_product"):
+            xH = torch.sum(Xp[rows] * s_loc(Xp), dim=1) * inv_tr
+        xH = gather(xH)
 
         new = dict(eaD=eaD, eaF=eaF, eaH=eaH, d_accu=d_accu, f_accu=f_accu,
                    hrow=hrow, X_mdiag=X_mdiag, xF=xF, xH=xH,
@@ -360,27 +398,29 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         # The averaged Gram takes X_0..X_{nit-2}: the average is pre-update
         # and X_0 = I adds nothing off the diagonal, so the final X (absolute
         # index nit-1) is left out (the JAX solver multiplies it by a zero
-        # gate).  Both accumulators update in place.
+        # gate).  Both accumulators update in place, each on this rank's
+        # rows only.
         if use_bcsr:
             key = "avg_blocks" if block_gram else "avg_edge"
             new[key] = c[key]
         if use_bcsr and i < nit - 1:
-            Xp = padV(X_half)
-            Xr = Xp.reshape(Kbr, Brow, D_pad)
+            Xr = Xp[rows].reshape(nloc, Brow, D_pad)
             Xc = Xp.reshape(Kbc, Bcol, D_pad)
             if block_gram:
-                R = Xc[bcsr.s_blocks.bcols].reshape(Kbr, maxblk * Bcol, D_pad)
+                R = Xc[sb.bcols].reshape(nloc, maxblk * Bcol, D_pad)
                 Gb = torch.bmm(Xr, R.transpose(1, 2)).to(torch.float32)
                 new["avg_blocks"].addcmul_(Gb, inv_tr.to(torch.float32))
             else:
-                bcsr_edge_gram_accum(bcsr.s_blocks.bcols, Xr, Xc, bcsr.g_src,
+                bcsr_edge_gram_accum(sb.bcols, Xr, Xc, bcsr.g_src,
                                      bcsr.g_dst, new["avg_edge"], inv_tr)
         elif not use_bcsr:
             new["s_edge"] = torch.where(
-                ell.s_vals != 0, _edge_dots(ell, ell.s_cols, X_half, inv_tr),
+                ell.s_vals[rows] != 0,
+                _edge_dots(ell.s_cols[rows], X_half[rows], X_half, inv_tr),
                 0.0)
             new["st_edge"] = torch.where(
-                ell.st_vals != 0, _edge_dots(ell, ell.st_cols, X_half, inv_tr),
+                ell.st_vals[rows] != 0,
+                _edge_dots(ell.st_cols[rows], X_half[rows], X_half, inv_tr),
                 0.0)
             new["avg_s"] = c["avg_s"] + c["s_edge"]
             new["avg_st"] = c["avg_st"] + c["st_edge"]
@@ -399,41 +439,45 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             ub_final=ub_final, gap_log=c["gap"])
 
     if use_bcsr:
-        nslots = Kbr * maxblk * Brow * Bcol
+        nslots = nloc * maxblk * Brow * Bcol
         if block_gram:
             # Masking by the scattered symmetrization weights (zero off the
             # pattern) both symmetrizes and drops non-pattern positions.
             wflat = torch.zeros(nslots, dtype=torch.float32, device=device)
             wflat[bcsr.s_pos] = bcsr.w_edge.to(torch.float32)
-            wavg = (c["avg_blocks"].reshape(Kbr, Brow, maxblk, Bcol) / nit
-                    * wflat.reshape(Kbr, Brow, maxblk, Bcol)).to(q_dtype)
+            wavg = (c["avg_blocks"].reshape(nloc, Brow, maxblk, Bcol) / nit
+                    * wflat.reshape(nloc, Brow, maxblk, Bcol)).to(q_dtype)
         else:
             avg_vals = (c["avg_edge"][:nnz_s] / nit) * bcsr.w_edge.to(dtype)
             flat = torch.zeros(nslots, dtype=q_dtype, device=device)
             flat[bcsr.s_pos] = avg_vals.to(q_dtype)
-            wavg = flat.reshape(Kbr, Brow, maxblk, Bcol)
-        q_avg = q_block_vals(avg_F)
-        avg_bell = BlockEll(bcols=bcsr.s_blocks.bcols, blocks=wavg,
-                            nrows=nrows)
+            wavg = flat.reshape(nloc, Brow, maxblk, Bcol)
+        q_avg = q_vals(avg_F)
+        avg_bell = BlockEll(bcols=sb.bcols, blocks=wavg, nrows=nloc * Brow,
+                            ncols=nrows)
 
         def X_avg_apply(V):
             Vp = padV(V)
-            t = avg_mdiag[:, None] * V
-            t = t + q_spmm(q_avg, V)
-            t = t + bcsr_spmm(avg_bell, Vp, row_chunk=spmm_row_chunk)[:Kp]
-            t = t + bcsr_spmm_transpose(bcsr.s_blocks.bcols, wavg, Vp,
-                                        row_chunk=spmm_row_chunk)[:Kp]
-            return t
+            with span("graph.local_product"):
+                t = loc(avg_mdiag)[:, None] * Vp[rows]
+                t = t + q_loc(q_avg, Vp)
+                t = t + bcsr_spmm(avg_bell, Vp, row_chunk=spmm_row_chunk)
+                tt = bcsr_spmm_transpose(sb.bcols, wavg, Vp[rows],
+                                         row_chunk=spmm_row_chunk,
+                                         ncols=nrows)
+            # Each rank's rows add into every column block of the transpose.
+            return gather(t) + graph.sum_over(tt)[:Kp]
     else:
-        avg_s = c["avg_s"] / nit * ell.s_xw
-        avg_st = c["avg_st"] / nit * ell.st_xw
+        avg_s = c["avg_s"] / nit * ell.s_xw[rows]
+        avg_st = c["avg_st"] / nit * ell.st_xw[rows]
 
         def X_avg_apply(V):
-            t = avg_mdiag[:, None] * V
-            t = t + _q_apply(ell, avg_F, V)
-            t = t + ell_spmm(ell.s_cols, avg_s, V)
-            t = t + ell_spmm(ell.st_cols, avg_st, V)
-            return t
+            with span("graph.local_product"):
+                t = loc(avg_mdiag)[:, None] * V[rows]
+                t = t + q_loc(avg_F, V)
+                t = t + ell_spmm(ell.s_cols[rows], avg_s, V)
+                t = t + ell_spmm(ell.st_cols[rows], avg_st, V)
+            return gather(t)
 
     # Randomized subspace iteration on the implicit symmetric operator.
     r_ov = min(rank_pad + 8, Kp)

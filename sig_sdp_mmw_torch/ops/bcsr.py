@@ -48,11 +48,20 @@ def _block_pair(block) -> Tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class BlockEll(TensorFields):
     """Block-ELL sparse matrix.  ``blocks`` is stored [Kbr, Brow, maxblk,
-    Bcol] so that (maxblk, Bcol) flattens into one contraction axis."""
+    Bcol] so that (maxblk, Bcol) flattens into one contraction axis.
+
+    ``nrows`` (= Kbr * Brow) counts the rows the operand holds, ``ncols``
+    the rows of the V it multiplies (default ``nrows``, a square operand;
+    a row shard, :func:`shard_rows`, keeps the full column count)."""
 
     bcols: torch.Tensor    # [Kbr, maxblk] int32 — column-block indices
     blocks: torch.Tensor   # [Kbr, Brow, maxblk, Bcol] — dense block values
     nrows: int
+    ncols: Optional[int] = None
+
+    def __post_init__(self):
+        if self.ncols is None:
+            object.__setattr__(self, "ncols", self.nrows)
 
     @property
     def B(self) -> int:           # Bcol (column width of a block)
@@ -160,7 +169,7 @@ def bcsr_spmm_reference(mat: BlockEll, V: torch.Tensor,
     product accumulates in V's dtype, as the TPU kernel does."""
     Br, Bc = mat.Brow, mat.B
     Kbr = mat.Kb
-    Kbc = mat.nrows // Bc
+    Kbc = mat.ncols // Bc
     D = V.shape[1]
     acc = V.dtype
     maxblk = mat.bcols.shape[1]
@@ -181,13 +190,14 @@ def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
         return f"blocks must be float32 or bfloat16, got {mat.blocks.dtype}"
     if (mat.blocks.dim() != 4 or mat.blocks.shape[0] != mat.Kb
             or mat.blocks.shape[2] != mat.bcols.shape[1]
-            or mat.nrows != mat.Kb * mat.Brow):
+            or mat.nrows != mat.Kb * mat.Brow or mat.ncols % mat.B):
         return (f"blocks {list(mat.blocks.shape)} do not match bcols "
-                f"{list(mat.bcols.shape)} and nrows {mat.nrows}")
+                f"{list(mat.bcols.shape)}, nrows {mat.nrows} and ncols "
+                f"{mat.ncols}")
     if V.dtype != torch.float32:
         return f"V must be float32, got {V.dtype}"
-    if V.dim() != 2 or V.shape[0] != mat.nrows:
-        return f"V must be [{mat.nrows}, D], got {list(V.shape)}"
+    if V.dim() != 2 or V.shape[0] != mat.ncols:
+        return f"V must be [{mat.ncols}, D], got {list(V.shape)}"
     if V.shape[1] == 0 or V.shape[1] % 8:
         return f"D must be a positive multiple of 8, got {V.shape[1]}"
     if mat.bcols.dtype != torch.int32:
@@ -207,8 +217,9 @@ def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
 def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
               row_chunk: Optional[int] = None,
               tile_cols: Optional[int] = None) -> torch.Tensor:
-    """BlockEll [Kp, Kp] x [Kp, D] -> [Kp, D].  A CPU tensor goes to the
-    plain version (``row_chunk`` bounds its transients); a CUDA tensor
+    """BlockEll [nrows, ncols] x [ncols, D] -> [nrows, D].  A CPU tensor
+    goes to the plain version (``row_chunk`` bounds its transients); a CUDA
+    tensor
     launches the block-ELL kernel on the current stream, which needs no
     chunking, or raises.  V's columns are padded with zeros to a multiple of
     8 for the kernel (the gap Lanczos sends D=1) and the result is sliced
@@ -276,28 +287,62 @@ bcsr_spmm.launches = bcsr_spmm.generic_launches = 0
 
 
 def bcsr_spmm_transpose(mat_bcols: torch.Tensor, blocks: torch.Tensor,
-                        V: torch.Tensor,
-                        row_chunk: Optional[int] = None) -> torch.Tensor:
+                        V: torch.Tensor, row_chunk: Optional[int] = None,
+                        ncols: Optional[int] = None) -> torch.Tensor:
     """``A^T @ V`` with A in BlockEll form (bcols, blocks): every
     per-(row, slot) contribution ``blocks[k, :, s, :]^T @ Vr[k]`` from one
     batched product per chunk of ``row_chunk`` block-rows (None: one chunk),
-    scatter-added into the output column blocks.  Plain torch on every
-    device (the JAX package's is an XLA scatter-add, not a Pallas kernel).
-    On CUDA the scatter-add order varies from run to run (float sums differ
-    in the last bits)."""
+    added into its output column block.  V has A's rows (Kbr * Br); the
+    output has ``ncols`` rows (default Kbr * Br, a square A).  Plain torch
+    on every device (the JAX package's is an XLA scatter-add, not a Pallas
+    kernel).
+
+    The sum is deterministic: each column block adds its contributions in
+    (block-row, slot) order, the order of a sequential scatter-add, one at
+    a time, so the result repeats bit for bit on the card as well.  Slots
+    at column-block 0 after a row's first are the packers' zero padding
+    (``tests/test_torch_padding.py``) and are left out, which changes no
+    bit of the sum."""
     Kbr, maxblk = mat_bcols.shape
     Br, Bc = blocks.shape[1], blocks.shape[-1]
     nrows = Kbr * Br
-    Kbc = nrows // Bc
+    Kbc = (ncols or nrows) // Bc
     D = V.shape[1]
     acc = V.dtype
     Vr = V.to(blocks.dtype).to(acc).reshape(Kbr, Br, D)
     seg = torch.zeros((Kbc, Bc, D), dtype=acc, device=V.device)
-    for i, j in _row_chunks(Kbr, row_chunk):
-        c = torch.einsum("krsc,krd->kscd", blocks[i:j].to(acc), Vr[i:j])
-        seg.index_add_(0, mat_bcols[i:j].reshape(-1),
-                       c.reshape((j - i) * maxblk, Bc, D))
-    return seg.reshape(nrows, D)
+    chunks = _row_chunks(Kbr, row_chunk)
+    # A chunk's contributions go to rows [0, n) of c; row ``zero`` stays 0.
+    zero = max(j - i for i, j in chunks) * maxblk
+    c = torch.empty((zero + 1, Bc, D), dtype=acc, device=V.device)
+    c[zero] = 0
+    slot = torch.arange(maxblk, device=V.device)
+    for i, j in chunks:
+        n = (j - i) * maxblk
+        torch.bmm(blocks[i:j].to(acc).reshape(j - i, Br, maxblk * Bc)
+                  .transpose(1, 2), Vr[i:j],
+                  out=c[:n].view(j - i, maxblk * Bc, D))
+        # Each column block's contributions, in slot order, padded with the
+        # zero row: column t's w-th is idx[t, w].  Padding slots go to a
+        # column Kbc of their own, which is not summed.
+        bc = mat_bcols[i:j].long()
+        tgt = torch.where((bc == 0) & (slot > 0), Kbc, bc).reshape(-1)
+        order = torch.argsort(tgt, stable=True)
+        count = torch.bincount(tgt, minlength=Kbc + 1)
+        start = torch.cumsum(count, 0) - count
+        width, npad = torch.stack([count[:Kbc].max(),
+                                   count[Kbc]]).tolist()
+        real = order[:n - npad]         # the padding sorts last
+        tgt = tgt[real]
+        idx = torch.full((Kbc, width), zero, dtype=torch.long,
+                         device=V.device)
+        idx[tgt, torch.arange(n - npad, device=V.device) - start[tgt]] = real
+        cols = torch.nonzero(count[:Kbc]).flatten()   # the chunk's columns
+        idx = idx[cols]
+        for w in range(width):
+            # ``cols`` are distinct, so each element takes exactly one add.
+            seg.index_add_(0, cols, torch.index_select(c, 0, idx[:, w]))
+    return seg.reshape(Kbc * Bc, D)
 
 
 def bcsr_edge_gram_accum(bcols: torch.Tensor, Xr: torch.Tensor,
@@ -339,7 +384,12 @@ class FlatBsr(TensorFields):
     bcols: torch.Tensor    # [nsteps*G] int32 — column-block ids, flat
     blocks: torch.Tensor   # [nsteps, Br, G*Bc] — G dense blocks side by side
     row_ptr: torch.Tensor  # [Kbr+1] int32 — first step of each block-row
-    nrows: int
+    nrows: int             # rows held (Kbr * Br)
+    ncols: Optional[int] = None   # rows of V (default nrows, as BlockEll)
+
+    def __post_init__(self):
+        if self.ncols is None:
+            object.__setattr__(self, "ncols", self.nrows)
 
     @property
     def G(self) -> int:
@@ -363,7 +413,7 @@ class FlatBsr(TensorFields):
 
 
 def flat_bsr(brows: np.ndarray, bcols: np.ndarray, blocks: torch.Tensor,
-             nrows: int) -> FlatBsr:
+             nrows: int, ncols: Optional[int] = None) -> FlatBsr:
     """FlatBsr from host step arrays, deriving and checking ``row_ptr``:
     steps must be sorted by block-row, and every block-row must own at least
     one step (the kernel writes each output row-block from its own steps)."""
@@ -382,7 +432,7 @@ def flat_bsr(brows: np.ndarray, bcols: np.ndarray, blocks: torch.Tensor,
                    bcols=torch.from_numpy(np.array(bcols, np.int32)
                                           ).to(device),
                    blocks=blocks, row_ptr=torch.from_numpy(row_ptr).to(device),
-                   nrows=int(nrows))
+                   nrows=int(nrows), ncols=ncols)
 
 
 def bsr_flat_from_csr(M, block=128, group: int = 4,
@@ -450,7 +500,7 @@ def bsr_spmm_flat_reference(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     G, Br, Bc = mat.G, mat.Br, mat.Bc
     D = V.shape[1]
     acc = V.dtype
-    Vb = V.to(mat.blocks.dtype).to(acc).reshape(mat.nrows // Bc, Bc, D)
+    Vb = V.to(mat.blocks.dtype).to(acc).reshape(mat.ncols // Bc, Bc, D)
     R = Vb[mat.bcols].reshape(mat.nsteps, G * Bc, D)
     prod = torch.einsum("sik,skd->sid", mat.blocks.to(acc), R)
     out = torch.zeros((mat.nrows // Br, Br, D), dtype=acc, device=V.device)
@@ -557,10 +607,13 @@ def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
     (:func:`pad_columns`)."""
     if mat.blocks.dtype not in _KERNEL_BLOCK_DTYPES:
         return f"blocks must be float32 or bfloat16, got {mat.blocks.dtype}"
+    if mat.nrows != mat.Kbr * mat.Br or mat.ncols % mat.Bc:
+        return (f"nrows {mat.nrows} and ncols {mat.ncols} do not match "
+                f"{mat.Kbr} block-rows of {mat.Br}x{mat.Bc} blocks")
     if V.dtype != torch.float32:
         return f"V must be float32, got {V.dtype}"
-    if V.dim() != 2 or V.shape[0] != mat.nrows:
-        return f"V must be [{mat.nrows}, D], got {list(V.shape)}"
+    if V.dim() != 2 or V.shape[0] != mat.ncols:
+        return f"V must be [{mat.ncols}, D], got {list(V.shape)}"
     if V.shape[1] == 0 or V.shape[1] % 8:
         return f"D must be a positive multiple of 8, got {V.shape[1]}"
     for name, t, dt in (("row_ptr", mat.row_ptr, torch.int32),
@@ -678,6 +731,10 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bsr_spmm_vres: no kernel for device {V.device}")
     Vk = pad_columns(V)
     why = flat_kernel_unsupported(mat, Vk)
+    if why is None and mat.ncols != mat.nrows:
+        # Its TMA map spans V as [Kbr * 128] rows.
+        why = (f"square operands only (nrows {mat.nrows}, ncols "
+               f"{mat.ncols})")
     if why is not None:
         raise ValueError(f"bsr_spmm_vres: {why}")
     from sig_sdp_mmw_torch.ops.kernels import bsr_spmm_vres_library
@@ -897,6 +954,87 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
         q_pos=torch.from_numpy(q_pos),
         q_eidx=torch.from_numpy(ee.astype(np.int32)),
         s_flat=s_flat, st_flat=st_flat).to(device)
+
+
+def shard_range(n: int, g: int, size: int) -> Tuple[int, int]:
+    """[r0, r1): part ``g`` of ``size`` of ``n`` units (block-rows, rows),
+    contiguous, ``ceil(n / size)`` each and the rest in the last part.
+    Raises when a part would be empty."""
+    chunk = -(-n // size)
+    r0, r1 = g * chunk, min((g + 1) * chunk, n)
+    if not 0 <= g < size or r0 >= r1:
+        raise ValueError(f"cannot split {n} rows into {size} non-empty "
+                         f"parts of {chunk} (part {g})")
+    return r0, r1
+
+
+def shard_rows(op, g: int, n: int):
+    """Rank ``g`` of ``n``'s row shard of a block operand: block-rows
+    [r0, r1) of :func:`shard_range`, column indices and ``ncols`` kept
+    global, so the shard's product is rows [r0*Br, r1*Br) of the full one.
+    The shard owns its memory (a copy, not a view of the full operand).
+
+    * :class:`BlockEll`: its bcols and blocks rows;
+    * :class:`FlatBsr`: the contiguous steps of those block-rows, ``brows``
+      and ``row_ptr`` rebased to the shard;
+    * :class:`BcsrOperands`: every block operand as above; the association
+      layout (``q_pos``/``q_eidx``) and the Gram maps (``g_src``/``g_dst``,
+      ``s_pos``, ``w_edge``) keep the entries of the shard's rows, positions
+      rebased to the shard's blocks and S̃ edges renumbered from the
+      shard's first (edges are in row order, so a shard's are contiguous);
+      association edge ids stay global.
+    """
+    if isinstance(op, BlockEll):
+        r0, r1 = shard_range(op.Kb, g, n)
+        return BlockEll(bcols=op.bcols[r0:r1].clone(),
+                        blocks=op.blocks[r0:r1].clone(),
+                        nrows=(r1 - r0) * op.Brow, ncols=op.ncols)
+    if isinstance(op, FlatBsr):
+        r0, r1 = shard_range(op.Kbr, g, n)
+        s0, s1 = (int(x) for x in op.row_ptr[[r0, r1]].tolist())
+        return FlatBsr(brows=op.brows[s0:s1] - r0,
+                       bcols=op.bcols[s0 * op.G:s1 * op.G].clone(),
+                       blocks=op.blocks[s0:s1].clone(),
+                       row_ptr=op.row_ptr[r0:r1 + 1] - s0,
+                       nrows=(r1 - r0) * op.Br, ncols=op.ncols)
+    if not isinstance(op, BcsrOperands):
+        raise TypeError(f"shard_rows: no row shard of {type(op).__name__}")
+    sb = op.s_blocks
+    r0, r1 = shard_range(sb.Kb, g, n)
+    Br, Bc, maxblk = sb.Brow, sb.B, sb.bcols.shape[1]
+    dev = op.w_edge.device
+    # S̃ edges of the shard: contiguous, in block-row order.
+    s_pos = op.s_pos.cpu().numpy().astype(np.int64)
+    e0, e1 = np.searchsorted(s_pos // (Br * maxblk * Bc), [r0, r1])
+    nnz_loc = int(e1 - e0)
+    src = op.g_src.cpu().numpy().astype(np.int64)
+    dst = op.g_dst.cpu().numpy().astype(np.int64)
+    keep = (dst >= e0) & (dst < e1)
+    max_e = max(int(keep.sum(1).max(initial=0)), 1)
+    g_src = np.zeros((maxblk, max_e), np.int32)
+    g_dst = np.full((maxblk, max_e), nnz_loc, np.int32)
+    for s in range(maxblk):
+        k = keep[s]
+        g_src[s, :k.sum()] = src[s, k] - r0 * Br * Bc
+        g_dst[s, :k.sum()] = dst[s, k] - e0
+    # Association entries in the shard's block-rows.
+    maxblkQ = op.q_bcols.shape[1]
+    q_row = Br * maxblkQ * Bc
+    q_pos = op.q_pos.long()
+    q_in = (q_pos >= r0 * q_row) & (q_pos < r1 * q_row)
+    return dataclasses.replace(
+        op, s_blocks=shard_rows(sb, g, n),
+        st_blocks=(None if op.st_blocks is None
+                   else shard_rows(op.st_blocks, g, n)),
+        g_src=torch.from_numpy(g_src).to(dev),
+        g_dst=torch.from_numpy(g_dst).to(dev),
+        w_edge=op.w_edge[e0:e1].clone(),
+        s_pos=(op.s_pos[e0:e1] - r0 * Br * maxblk * Bc).clone(),
+        q_bcols=op.q_bcols[r0:r1].clone(),
+        q_pos=(q_pos[q_in] - r0 * q_row).to(op.q_pos.dtype),
+        q_eidx=op.q_eidx[q_in],
+        s_flat=None if op.s_flat is None else shard_rows(op.s_flat, g, n),
+        st_flat=None if op.st_flat is None else shard_rows(op.st_flat, g, n))
 
 
 def from_jax_arrays(arrays: Mapping) -> BcsrOperands:

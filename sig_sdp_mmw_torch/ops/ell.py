@@ -11,10 +11,11 @@ import torch
 
 def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
              V: torch.Tensor) -> torch.Tensor:
-    """[Kp, deg] ELL x [Kp, D] block -> [Kp, D], slot by slot: each step is
-    one [Kp]-row gather of V plus a scaled add, so peak memory stays
-    O(Kp * D)."""
-    acc = torch.zeros_like(V)
+    """[n, deg] ELL x [Kp, D] block -> [n, D] (n = Kp, or a run of rows),
+    slot by slot: each step is one [n]-row gather of V plus a scaled add,
+    so peak memory stays O(n * D)."""
+    acc = torch.zeros((cols.shape[0], V.shape[1]), dtype=V.dtype,
+                      device=V.device)
     for d in range(cols.shape[1]):
         acc = acc + vals[:, d][:, None] * V[cols[:, d]]
     return acc

@@ -2,7 +2,9 @@
 :mod:`sig_sdp_mmw_tpu.parallel.batch`).
 
 * :func:`solve_scenarios_batched` — the MMW solve of every instance of a
-  stacked batch of states (the reference's seed loops);
+  stacked batch of states (the reference's seed loops); with a mesh
+  (:mod:`sig_sdp_mmw_torch.parallel.mesh`), the instances are split over
+  its batch axis and each is solved with its mesh row's graph axis;
 * :class:`ParallelProbeSearch` — solve every candidate Z in [lb, ub] of the
   dense state, round each, and narrow the window to the smallest feasible
   one;
@@ -11,12 +13,12 @@
   between the largest infeasible and the smallest feasible candidate.
 
 The JAX package runs the candidates of a wave as one ``vmap``, which a mesh
-can spread over chips.  On one card the port solves them one after
-another: at K~100k one probe already fills the card, so a wave costs about
-``wave`` probe-times either way (the JAX docstring says the same of one
-chip).  Batching a wave's solves into shared launches is later work; its
-roundings already share one sequential scan, a row per candidate and
-attempt.  The draws follow the JAX key schedule by role
+can spread over chips.  The port's probe searches solve them one after
+another on one card: at K~100k one probe already fills the card, so a wave
+costs about ``wave`` probe-times either way (the JAX docstring says the
+same of one chip).  Batching a wave's solves into shared launches is later
+work; its roundings already share one sequential scan, a row per candidate
+and attempt.  The draws follow the JAX key schedule by role
 (:mod:`sig_sdp_mmw_torch.utils.draws`: ``wave``, ``scenario_solve``,
 ``scenario_round``, ``candidate_round``).
 """
@@ -61,22 +63,32 @@ def solve_scenarios_batched(states: SigState, Z, *, nit: int, eta: float,
                             lanczos_m: Optional[int] = None) -> MMWOutput:
     """:func:`mmw_solve` of every instance along the leading batch axis of
     ``states``, instance b with ``draws.scenario_solve(b, B)``; the outputs
-    stacked [B, ...].  ``Z`` may be a scalar or a [B] sequence.  ``mesh``
-    (the JAX package's sharded batch) belongs to ``parallel/mesh.py``, a
-    later slice of the port, and raises here."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_scenarios_batched: a mesh needs parallel/mesh.py, which "
-            "is not ported yet")
+    stacked [B, ...].  ``Z`` may be a scalar or a [B] sequence.
+
+    ``mesh`` (:func:`sig_sdp_mmw_torch.parallel.mesh.make_mesh`, every rank
+    calling with the same arguments): mesh row r solves instances
+    [r*c, (r+1)*c) (c = ceil(B / batch)), each with the row's graph axis,
+    and the outputs are gathered over the batch axis, so every rank
+    returns the whole stacked output.  Raises when a mesh row would get no
+    instance."""
     B = states.S.shape[0]
     Zv = np.broadcast_to(np.asarray(Z, np.float64), (B,))
+    graph = batch = None
+    mine = range(B)
+    if mesh is not None:
+        batch, graph = (mesh.axis(mesh.axis_names[0]),
+                        mesh.axis(mesh.axis_names[1]))
+        mine = range(*batch.rows(B))
     outs = [mmw_solve(_instance(states, b), float(Zv[b]), nit=nit, eta=eta,
                       rank_radio=rank_radio, D_pad=D_pad, rank_pad=rank_pad,
-                      draws=draws.scenario_solve(b, B), lanczos_m=lanczos_m)
-            for b in range(B)]
-    return MMWOutput(**{f.name: torch.stack([getattr(o, f.name)
-                                             for o in outs])
-                        for f in dataclasses.fields(MMWOutput)})
+                      draws=draws.scenario_solve(b, B), lanczos_m=lanczos_m,
+                      graph=graph)
+            for b in mine]
+    fields = {f.name: torch.stack([getattr(o, f.name) for o in outs])
+              for f in dataclasses.fields(MMWOutput)}
+    if batch is not None:
+        fields = {k: batch.gather_rows(v, B) for k, v in fields.items()}
+    return MMWOutput(**fields)
 
 
 class ParallelProbeSearch(StatsObject):

@@ -34,7 +34,8 @@ from sig_sdp_mmw_torch.models.rounding import verify_assignment
 from sig_sdp_mmw_torch.models.rounding_ell import verify_assignment_ell
 from sig_sdp_mmw_torch.parallel import (ParallelProbeSearch,
                                         ParallelProbeSearchEll,
-                                        solve_scenarios_batched, stack_states)
+                                        make_mesh, solve_scenarios_batched,
+                                        stack_states)
 from torch_jax_parity import JaxDraws, jax_fields
 from torch_jax_parity import one_torch_thread  # noqa: F401  (autouse)
 
@@ -77,9 +78,11 @@ def test_batched_solve_is_per_instance_solve(states):
         torch.testing.assert_close(out.X_half[b], one.X_half, rtol=0,
                                    atol=0)
         assert float(out.ub_final[b]) == float(one.ub_final)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        solve_scenarios_batched(stacked, 8.0, draws=draws, mesh=object(),
-                                **kw)
+    # A one-process mesh (batch 1 x graph 1) is the same solve.
+    meshed = solve_scenarios_batched(stacked, [8.0, 9.0], draws=draws,
+                                     mesh=make_mesh(), **kw)
+    torch.testing.assert_close(meshed.X_half, out.X_half, rtol=0, atol=0)
+    torch.testing.assert_close(meshed.ub_final, out.ub_final, rtol=0, atol=0)
 
 
 def test_parallel_probe_search_dense(states):

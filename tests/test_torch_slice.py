@@ -118,7 +118,11 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.experiments.sim_mmw_oracle_time,"
             " sig_sdp_mmw_torch.experiments.sim_mmw_oracle_z,"
             " sig_sdp_mmw_torch.experiments.sim_online_iterations,"
-            " sig_sdp_mmw_torch.experiments.sim_online_methods; "
+            " sig_sdp_mmw_torch.experiments.sim_online_methods,"
+            " sig_sdp_mmw_torch.parallel.mesh,"
+            " sig_sdp_mmw_torch.parallel.distributed,"
+            " sig_sdp_mmw_torch.utils.profiling, sig_sdp_mmw_torch.entry,"
+            " sig_sdp_mmw_torch.experiments.sharded_large; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
