@@ -17,8 +17,8 @@
      100k path (128x128 blocks, 8 per step): bf16 blocks at D=32, 48, 64
      and 128 (and D=128 split over two 64-column CTAs), float32 blocks at
      D=32 and 128, and S̃ᵀ (bf16, D=128);
-   * block-ELL (bcsr_spmm) on the same S̃: bf16 at D=48 and D=128, float32
-     at D=48; on the 100k association operator Q (bf16, D=128); and on the
+   * block-ELL (bcsr_spmm) on the same S̃: bf16 and float32 at D=48 and
+     D=128; on the 100k association operator Q (bf16, D=128); and on the
      K=1,009,200 S̃ and Q of the million-link path (bf16, D=48) against the
      plain version at row_chunk=2048;
    * V-resident flat (bsr_spmm_vres) on the same S̃: bf16 at G=8 (D=48
@@ -26,11 +26,12 @@
      the SpMM bench entry point (sig_sdp_mmw_torch/experiments/
      bench_flat_spmm.py) at G=8 and G=32, which also runs the ELL and flat
      kernels on that operand;
-   * block shapes without a 128x128 fast path (bf16: the short-block
-     tensor-core tile; float32: the generic FMA tile), at D=48 on the same
-     S̃: flat at 8x128 (bf16 and float32), 16x128, 32x32 and 8x8 (bf16);
-     block-ELL at 8x128, 16x128, 16x16 and 32x32 (bf16); V-resident at
-     8x128 (bf16); the K=1,009,200 S̃ as flat 8x128 bf16 blocks, G=8, D=16
+   * block shapes without a 128x128 fast path (the short-block
+     tensor-core tile, bf16 or float32), at D=48 on the same S̃: flat at
+     8x128 and 32x32 (bf16 and float32), 16x128 and 8x8 (bf16); block-ELL
+     at 8x128, 32x32 and 8x8 (bf16 and float32), 16x128 and 16x16 (bf16);
+     V-resident at 8x128 (bf16); the K=1,009,200 S̃ as flat 8x128 bf16
+     blocks, G=8, D=16
      (126,160 block-rows); the mid-K path's own operands (phase 6's cell
      40 from bcsr_operands_from_state, 32x32 bf16 blocks): S̃ through the
      flat kernel and through the block-ELL kernel at D=128 (the solver's
@@ -40,6 +41,13 @@
      (bench_flat_spmm.v_gather_bytes); and the block-height comparison:
      the 100k S̃ as flat 8x128 bf16 against the 128x128 ring tile at D=48
      and D=128 (measured only; every main path keeps 128x128);
+   * every float32 case also checks that its launch was counted on its
+     route (ring_f32 for 128x128 on the flat and block-ELL kernels,
+     short_f32 for every other shape) and prints the route, its bound
+     (float32 operations at the faster of the CUDA cores' float32 rate and
+     three TF32 products on the tensor cores) and share, the plain
+     version's and the library call's times (the comparison is printed,
+     not asserted);
    * the yardstick PyTorch call (bench_flat_spmm.library_spmm: a BSR tensor
      of the real blocks @ V, or, where PyTorch refuses non-square blocks, a
      CSR tensor of their entries @ V; in the block dtype where PyTorch runs
@@ -57,7 +65,10 @@
    scan timed once on the last probe's factor after the pipeline returns
    (so the search's seconds are the device route's alone), and the
    heuristic rows MAX_GAIN_ELL and MAX_RAND_ELL at Z_fin (rem 0 must
-   verify).  Then
+   verify).  Then one solve (nit=150) at the search's first probe Z in
+   each block dtype, the float32 one in the layout e2e_large(bf16=False)
+   builds (128x128 float32 blocks, stored transpose, flat_group=8: the
+   ring_f32 route): ms per iteration and ub of each, ub finite.  Then
    a short solve with the gap log
    (MMWEll(nit=5, log_gap=True) at Z=16 on that instance's flat operands):
    its gap Lanczos sends D=1 through the flat kernel, and every gap entry
@@ -87,8 +98,8 @@
    the SpMM kernels launched 0 times.
 6. Mid-K (LargeEnv cell 40, Kp <= 16,384, so the device rounding takes the
    batched route) on 32x32 bf16 blocks, so S̃/S̃ᵀ go through the flat
-   kernel's generic tile and Q through the block-ELL kernel's: e2e_large
-   with search="binary" and search="speculative" (wave 4): rem 0,
+   kernel's short-block tile and Q through the block-ELL kernel's:
+   e2e_large with search="binary" and search="speculative" (wave 4): rem 0,
    verified, Z within 1 of each other, generic launches on both kernels,
    none of the V-resident kernel, every operand on the card.
 7. The journal comparison slice (sig_sdp_mmw_torch/models/{admm,lrp,
@@ -111,7 +122,7 @@
    the graph axis of models/mmw_ell.py and models/mmw.py): the flat (#1)
    and block-ELL (#3) kernels on row shards (shard_rows, rank 0 and 1 of 2)
    of the K=30,000 operands of (b), against their plain versions (and the
-   library call on rank 0's shard); (a)
+   library call on rank 0's shard; the float32 shards on ring_f32); (a)
    sig_sdp_mmw_torch.entry.dryrun_multichip(4): 4 ranks on cuda:0 over
    gloo, mesh batch 2 x graph 2, the batched dense solve with rounding (rem
    0, verified, every instance) and the graph-sharded (8, 8)-block probe
@@ -139,15 +150,16 @@ and no kernel may launch on the dense path, as in the JAX package).
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  The line before the last is the
 kernels' JSON record (each kernel with its phase-6 generic launches, the
-generic block shapes checked in phase 2 and its phase-8 launches per rank),
-the last ``{"ok": true,
-"device": {...}}``.
+generic block shapes checked in phase 2, the routes it took in phase 2 and
+its float32 cases, and its phase-8 launches per rank), the last ``{"ok":
+true, "device": {...}}``.
 """
 
 import contextlib
 import gc
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -235,6 +247,95 @@ def compare(name, mat, V, kernel, plain, iters=20, library=False):
         log(f"[2 library] {name}: {rec['library_call']} {rec['library_ms']} "
             f"ms in {rec['library_dtype']}, kernels {rec['library_kernels']}, "
             f"refused {rec['library_refused']}")
+    return rec
+
+
+def check_route(tb, name, fn, kind, mat, V) -> str:
+    """One launch of ``fn`` on ``mat @ V``, counted once and on the route
+    its float32 blocks must take (ring_f32 at 128x128 on the flat and
+    block-ELL kernels, short_f32 at every other shape; a generic launch
+    exactly when the route is one of GENERIC_ROUTES).  Returns the route."""
+    Br, Bc = (mat.Brow, mat.B) if kind == "ell" else (mat.Br, mat.Bc)
+    want = "ring_f32" if (Br, Bc) == (128, 128) else "short_f32"
+    route = tb.spmm_route(kind, Br, Bc, mat.blocks.dtype)
+    n0, g0 = fn.launches, fn.generic_launches
+    fn(mat, V)
+    if (route != want or fn.launches != n0 + 1
+            or fn.generic_launches != g0 + (route in tb.GENERIC_ROUTES)):
+        raise AssertionError(f"{name}: route {route} (want {want}), "
+                             f"launches +{fn.launches - n0}, generic "
+                             f"+{fn.generic_launches - g0}")
+    return route
+
+
+def f32_record(name, route, rec) -> dict:
+    """A float32 case's line: route, times, bound and share, printed with
+    the kernel's ratio to the library call (not asserted)."""
+    lib = rec.get("library_ms")
+    out = dict(case=name, route=route, ms=rec["ms"], plain_ms=rec["plain_ms"],
+               library_ms=lib, library_call=rec.get("library_call"),
+               bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+               share=rec["bound_ms"] / rec["ms"],
+               max_abs_err=rec["max_abs_err"])
+    log(f"[f32] {name}: route {route}, kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, library {lib} ms"
+        + (f" (kernel / library {rec['ms'] / lib:.3f})" if lib else "")
+        + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+        f"{out['share']:.3f}")
+    return out
+
+
+def f32_solve_check(tb, Z, nit=NIT) -> dict:
+    """Phase 3's instance solved once at Z in each block dtype, 128x128
+    blocks with stored transpose and flat_group=8 as e2e_large builds them
+    (bf16=False: float32 blocks, the ring_f32 route of both kernels), with
+    the same draws: ms per iteration and ub_final of each; both finite, the
+    float32 solve's products all on the flat and block-ELL kernels."""
+    import torch
+
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.models.mmw_ell import MMWEll
+
+    t0 = time.time()
+    env = LargeEnv(CELL, RHO, seed=SEED)
+    S, Q, h = env.generate_state_csr()
+    ell = env.generate_ell(device="cuda")
+    rec = {"Z": int(Z), "nit": nit}
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        alg = MMWEll(nit=nit, eta=ETA, use_bcsr=True, seed=SEED)
+        alg.prepare(ell, S, Q, h_max=h, block=128, dtype=dt,
+                    store_transpose=True, flat_group=GROUP)
+        reset_launches(tb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        alg.run_with_state(0, Z, ell)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t1
+        rec[name] = dict(ms_per_iteration=s / nit * 1e3,
+                         ub=float(alg.last_output.ub_final),
+                         flat=tb.bsr_spmm_flat.launches,
+                         ell=tb.bcsr_spmm.launches,
+                         generic=tb.bsr_spmm_flat.generic_launches
+                         + tb.bcsr_spmm.generic_launches)
+        log(f"[3 f32] {name} blocks, Z={Z}, nit={nit}: "
+            f"{rec[name]['ms_per_iteration']:.3f} ms per iteration, ub "
+            f"{rec[name]['ub']!r}; launches flat {rec[name]['flat']}, "
+            f"block-ELL {rec[name]['ell']}")
+        del alg
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = rec["float32"]
+    log(f"[3 f32] ub float32 - bfloat16 "
+        f"{f32['ub'] - rec['bfloat16']['ub']:.3e}; ms per iteration "
+        f"float32 / bfloat16 "
+        f"{f32['ms_per_iteration'] / rec['bfloat16']['ms_per_iteration']:.3f}"
+        f" [{time.time() - t0:.1f}s]")
+    if not all(math.isfinite(rec[k]["ub"]) for k in ("bfloat16", "float32")):
+        raise AssertionError(f"f32 solve check: ub not finite: {rec}")
+    if (tb.spmm_route("flat", 128, 128, torch.float32) != "ring_f32"
+            or f32["flat"] < nit or f32["ell"] < nit or f32["generic"]):
+        raise AssertionError(f"the float32 solve did not run its products "
+                             f"on ring_f32: {f32}")
     return rec
 
 
@@ -651,7 +752,7 @@ def native_rounding_on_last_factor(last: dict, device_s: float) -> dict:
 def midk_phase(tb, e2e_main) -> dict:
     """Phase 6, the mid-K instance (LargeEnv cell 40, Kp <= 16,384) on 32x32
     bf16 blocks (stored transpose, flat_group=8): S̃/S̃ᵀ through the flat
-    kernel's generic tile, Q and the epilogue through the block-ELL
+    kernel's short-block tile, Q and the epilogue through the block-ELL
     kernel's.  (a) the binary search, each probe rounded on the batched
     route; (b) the speculative search (wave 4).  Both rem 0 and verified,
     their Z within 1 of each other, every operand on the card, generic
@@ -718,7 +819,8 @@ def sharded_phase(tb, tmp: str) -> dict:
     """Phase 8, the sharded path: the kernels on row shards against their
     plain versions, then (a) the 4-rank dryrun, (b) sharded_large over 2
     ranks in both layouts, (c) the NCCL world of one, (d) the trace of
-    (b)'s bf16 solve.  Returns each kernel's launches per rank."""
+    (b)'s bf16 solve.  Returns each kernel's launches per rank by run
+    ("launches") and the float32 shard cases ("f32")."""
     import numpy as np
     import torch
 
@@ -731,6 +833,7 @@ def sharded_phase(tb, tmp: str) -> dict:
     S, Q, _ = LargeEnv(SHARD_CELL, RHO, seed=SEED).generate_state_csr()
     nr = -(-S.shape[0] // 256) * 256
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32 = []
     for layout, key in (("bf16_flat", "s_flat"), ("f32_ell", "s_blocks")):
         full = sharded_large.layout_operands(S, Q, 128, nr, layout)
         for g in range(2):
@@ -742,8 +845,11 @@ def sharded_phase(tb, tmp: str) -> dict:
                          (tb.bcsr_spmm, tb.bcsr_spmm_reference))
             name = f"shard {g}/2 {layout} S~ D={SHARD_D}"
             log(f"[8 kernel] {name}: rows {mat.nrows} of {mat.ncols}")
-            compare(name, mat, V, lambda: fn(mat, V), lambda: plain(mat, V),
-                    library=g == 0)
+            rec = compare(name, mat, V, lambda: fn(mat, V),
+                          lambda: plain(mat, V), library=g == 0)
+            if layout == "f32_ell":
+                f32.append(f32_record(name, check_route(
+                    tb, name, fn, "ell", mat, V), rec))
             del mat, V
         del full
     torch.cuda.empty_cache()
@@ -831,7 +937,7 @@ def sharded_phase(tb, tmp: str) -> dict:
     if not (g["ok"] and g["backend"] == "nccl"):
         raise AssertionError(f"nccl all-gather: {g}")
     log(f"[8 nccl] [{time.time() - t0:.1f}s]")
-    return launches
+    return {"launches": launches, "f32": f32}
 
 
 def main() -> int:
@@ -887,9 +993,22 @@ def main() -> int:
         f"[{time.time() - t0:.1f}s]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = {}
+    # The routes each kernel took in this phase, and the float32 cases.
+    kernel_routes = {name: set() for name in REPLACES}
+    f32 = {name: [] for name in REPLACES}
 
     def randn(rows, D):
         return torch.randn((rows, D), generator=gen, device="cuda")
+
+    def note(key, kind, name, fn, mat, V, rec):
+        """The route of a case checked by compare(); for float32 blocks,
+        one more launch counted on its route, and the case's record."""
+        Br, Bc = (mat.Brow, mat.B) if kind == "ell" else (mat.Br, mat.Bc)
+        route = tb.spmm_route(kind, Br, Bc, mat.blocks.dtype)
+        kernel_routes[key].add(route)
+        if mat.blocks.dtype == torch.float32:
+            check_route(tb, name, fn, kind, mat, V)
+            f32[key].append(f32_record(name, route, rec))
 
     def check_flat(op, csr, dt, dims, library=(), split=()):
         mat = tb.bsr_flat_from_csr(csr, block=128, group=GROUP, dtype=dt,
@@ -902,6 +1021,8 @@ def main() -> int:
                                   lambda: tb.bsr_spmm_flat(mat, V),
                                   lambda: tb.bsr_spmm_flat_reference(mat, V),
                                   library=D in library)
+            note("bsr_spmm_flat", "flat", name, tb.bsr_spmm_flat, mat, V,
+                 cases[name])
             if D in split:   # D over two CTAs of D/2 columns each
                 cases[f"{name} cols={D // 2}"] = compare(
                     f"{name} cols={D // 2}", mat, V,
@@ -915,6 +1036,7 @@ def main() -> int:
             name, mat, V, lambda: tb.bcsr_spmm(mat, V),
             lambda: tb.bcsr_spmm_reference(mat, V, row_chunk=row_chunk),
             iters, library)
+        note("bcsr_spmm_ell", "ell", name, tb.bcsr_spmm, mat, V, cases[name])
 
     def q_operator(ops):
         """The association operator Q: its block layout from the operand
@@ -936,7 +1058,7 @@ def main() -> int:
     # The 100k path's other flat operand, S̃ᵀ: another CSR, with its own
     # count of steps per block-row.
     check_flat("S~T", St.transpose().tocsr(), torch.bfloat16, (128,))
-    for dt, dims in ((torch.bfloat16, (48, 128)), (torch.float32, (48,))):
+    for dt, dims in ((torch.bfloat16, (48, 128)), (torch.float32, (48, 128))):
         mat = tb.bcsr_from_csr(St, block=128, dtype=dt, device="cuda")
         for D in dims:
             check_ell(f"ell S~ {str(dt).split('.')[-1]} D={D}", mat, D,
@@ -957,6 +1079,8 @@ def main() -> int:
                                   lambda: tb.bsr_spmm_vres(mat, V),
                                   lambda: tb.bsr_spmm_flat_reference(mat, V),
                                   library=G == 8)
+            note("bsr_spmm_vres", "vres", name, tb.bsr_spmm_vres, mat, V,
+                 cases[name])
         del mat
     torch.cuda.empty_cache()
 
@@ -981,6 +1105,7 @@ def main() -> int:
         if fn.generic_launches <= g0:
             raise AssertionError(f"{name} did not go through the generic "
                                  "launches")
+        note(key, kind, name, fn, mat, V, rec)
         gather = bench_flat_spmm.v_gather_bytes(mat, D)
         moved = rec["bytes_needed"] - 2 * mat.nrows * D * 4 + gather
         log(f"[2 generic] {name}: V gathered {gather / 1e6:.1f} MB, blocks + "
@@ -1007,12 +1132,16 @@ def main() -> int:
 
     t0 = time.time()
     short48, short128 = check_shape("flat", St, (8, 128), dims=(48, 128))
-    check_shape("flat", St, (8, 128), torch.float32)
     for block in ((16, 128), (32, 32), (8, 8)):
         check_shape("flat", St, block)
     for block in ((8, 128), (16, 128), (16, 16), (32, 32)):
         check_shape("ell", St, block)
     check_shape("vres", St, (8, 128))
+    # Float32 blocks of those shapes (short_f32): the packers' default
+    # 8x128, the dryrun's 8x8 and the mid-K search's 32x32.
+    for kind, block in (("flat", (8, 128)), ("ell", (8, 128)), ("ell", (8, 8)),
+                        ("flat", (32, 32)), ("ell", (32, 32))):
+        check_shape(kind, St, block, torch.float32)
     # Block height on the 100k S̃ (queue 2's item 5), measured only.
     for D, short in ((48, short48), (128, short128)):
         ring = cases[f"flat S~ bfloat16 D={D}"]
@@ -1085,6 +1214,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("[2 f32] " + json.dumps(f32))
     log(f"[time] phase 1-2 {time.time() - t_start:.1f}s")
 
     # ---- 3. the 100k path, end to end --------------------------------------
@@ -1162,10 +1292,15 @@ def main() -> int:
     e2e_rec = {k: rec[k] for k in ("Z_fin", "n_probes", "probe_Z",
                                     "rounding_info", "rounding_compare",
                                     "mgain", "mrand")}
+    log(f"[3 f32] the search's first probe (bf16, Z={rec['probe_Z'][0]}): "
+        f"{rec['solve_us_per_probe'][0] / NIT / 1e3:.3f} ms per iteration")
     del rec
     gc.collect()
     torch.cuda.empty_cache()
     gap_check(tb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e_rec["f32_solve"] = f32_solve_check(tb, e2e_rec["probe_Z"][0])
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[time] phase 3 {time.time() - t_phase:.1f}s")
@@ -1218,7 +1353,7 @@ def main() -> int:
         dense_phase(tb, os.path.join(tmp, "sim_mmw_time"))
     log(f"[time] phase 5 {time.time() - t_phase:.1f}s")
 
-    # ---- 6. mid-K: batched rounding, speculative search, generic tiles -----
+    # ---- 6. mid-K: batched rounding, speculative search, short-block tiles
     t_phase = time.time()
     midk = midk_phase(tb, e2e_main)
     log(f"[time] phase 6 {time.time() - t_phase:.1f}s")
@@ -1238,7 +1373,7 @@ def main() -> int:
 
     def per_rank(name):
         return {run: [n[name] for n in ranks]
-                for run, ranks in sharded.items()}
+                for run, ranks in sharded["launches"].items()}
 
     def entry(name, launches, case, source, generic_launches):
         return {"name": name, "route": "cuda",
@@ -1250,6 +1385,9 @@ def main() -> int:
                 "library_ms": case["library_ms"],
                 "generic_launches": generic_launches,
                 "block_shapes": generic[name],
+                "routes": sorted(kernel_routes[name]),
+                "f32_cases": f32[name] + (sharded["f32"]
+                                          if name == "bcsr_spmm_ell" else []),
                 "sharded_launches_per_rank": per_rank(
                     "bcsr_spmm" if name == "bcsr_spmm_ell" else name)}
 

@@ -84,10 +84,12 @@ def check(name: str, out: torch.Tensor, ref: torch.Tensor) -> dict:
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
-# memory, and the arithmetic each block dtype runs on (bf16 tensor cores;
-# float32 FMA on the CUDA cores, no TF32).
+# memory, and the arithmetic each block dtype can run on (bf16 tensor
+# cores; float32 FMA on the CUDA cores, or TF32 tensor cores, where a
+# float32-accurate product takes three TF32 products).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 494.7e12
 
 
 def real_slots(mat) -> torch.Tensor:
@@ -149,12 +151,16 @@ def block_height_bytes(csr, heights=(8, 16, 32, 64, 128),
 def bound(mat, D: int) -> dict:
     """The least time the card could take for ``mat @ V``: the larger of
     :func:`bytes_needed` over the memory rate and the real blocks' multiply-
-    adds (2 flop each) over the block dtype's peak rate."""
+    adds (2 flop each) over the block dtype's peak rate; for float32 blocks
+    the faster of the CUDA cores' float32 rate and three TF32 products per
+    multiply-add on the tensor cores, whatever implements the product."""
     Br, Bc = _block_shape(mat)
     nbytes = bytes_needed(mat, D)
     flop = 2 * int(real_slots(mat).sum()) * Br * Bc * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flop / PEAK_FLOPS[mat.blocks.dtype] * 1e3
+    if mat.blocks.dtype == torch.float32:
+        t_ops = min(t_ops, 3 * flop / TF32_FLOPS * 1e3)
     return dict(bytes_needed=nbytes, flop=flop, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -288,13 +294,17 @@ def shape_operand(kind: str, csr, block, dtype=torch.bfloat16, group=8,
 
 # (kernel, block shape, D, block dtype) for :func:`shapes`: the 128x128
 # main-path cases (the ring tile; the V-resident kernel's TMA path), the
-# float32 FMA tiles, and the short-block tile's bf16 shapes.
+# float32 cases (the ring and short-block tiles in float32; the V-resident
+# kernel's own FMA body at 128x128), and the short-block tile's bf16 shapes.
 SHAPE_CASES = (
     ("flat", 128, 48, "bfloat16"), ("flat", 128, 128, "bfloat16"),
     ("ell", 128, 48, "bfloat16"), ("vres", 128, 48, "bfloat16"),
     ("vres", 128, 128, "bfloat16"),
-    ("flat", 128, 32, "float32"), ("ell", 128, 48, "float32"),
-    ("flat", (8, 128), 48, "float32"),
+    ("flat", 128, 32, "float32"), ("flat", 128, 128, "float32"),
+    ("ell", 128, 48, "float32"), ("ell", 128, 128, "float32"),
+    ("vres", 128, 48, "float32"), ("flat", (8, 128), 48, "float32"),
+    ("ell", (8, 128), 48, "float32"), ("ell", 8, 48, "float32"),
+    ("flat", 32, 48, "float32"), ("ell", 32, 48, "float32"),
     ("flat", (8, 128), 48, "bfloat16"), ("flat", (8, 128), 128, "bfloat16"),
     ("flat", (16, 128), 48, "bfloat16"), ("flat", 32, 48, "bfloat16"),
     ("flat", 8, 48, "bfloat16"), ("ell", (8, 128), 48, "bfloat16"),
@@ -305,10 +315,12 @@ SHAPE_CASES = (
 def shapes(cases=SHAPE_CASES, cell=183, iters=20, out_path=None):
     """Time each case of ``cases`` on S̃ of ``cell`` (G=8 for the flat
     kernels) after checking it (two launches bitwise equal, within
-    ``REL_TOL`` of the plain version); one JSON line per case.  Needs a
-    CUDA device; writes the record as JSON only to ``out_path``."""
+    ``REL_TOL`` of the plain version); one JSON line per case, with the
+    body the tree under test routes it to.  Needs a CUDA device; writes the
+    record as JSON only to ``out_path``."""
     from sig_sdp_mmw_torch.core.ell import build_st_csr
     from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.ops.bcsr import spmm_route
 
     if not torch.cuda.is_available():
         raise RuntimeError("bench_flat_spmm measures on a CUDA device")
@@ -330,7 +342,9 @@ def shapes(cases=SHAPE_CASES, cell=183, iters=20, out_path=None):
         res = check(name, got, plain(mat, V))
         del got
         ms = time_ms(lambda: fn(mat, V), iters)
-        rec = {"case": name, "ms": ms, "max_abs_err": res["max_abs_err"],
+        route = spmm_route(kind, Br, Bc, mat.blocks.dtype)
+        rec = {"case": name, "route": route, "ms": ms,
+               "max_abs_err": res["max_abs_err"],
                **bound(mat, D), "v_gather_bytes": v_gather_bytes(mat, D)}
         rec["share"] = rec["bound_ms"] / ms
         print(json.dumps(rec))

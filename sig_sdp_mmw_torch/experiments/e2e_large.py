@@ -20,7 +20,7 @@ found Z (rem, verification, BLER and wall time each).
   the flat block-CSR CUDA kernel on the card; the association operator Q
   and the epilogue's block products through the block-ELL kernel.
   ``block``: 128 (128x128 blocks) or any other size (square blocks through
-  the kernels' generic tile).  ``d_pad`` caps the sketch width;
+  the kernels' short-block tile).  ``d_pad`` caps the sketch width;
   ``row_chunk`` bounds the block-ELL plain versions' transients.
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass ``"cpu"``

@@ -227,16 +227,16 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     ``bcsr_spmm.generic_launches`` those of them on a route of
     ``GENERIC_ROUTES``.
 
-    The body follows :func:`spmm_route`.  128x128 bfloat16 blocks take the
-    tensor-core ring tile, every other bfloat16 shape (8x128 included) the
-    short-block tensor-core tile: V is rounded to bfloat16 here, once per
-    call (the plain version's cast), and a CTA (ring) or warp (short) covers
+    The body follows :func:`spmm_route`.  128x128 blocks take the
+    tensor-core ring tile, every other shape (8x128 included) the
+    short-block tensor-core tile, in bfloat16 or float32 (three tf32
+    products per pair, :func:`tf32_split_matmul`).  For bfloat16 blocks V
+    is rounded to bfloat16 here, once per call (the plain version's cast);
+    float32 blocks read V as it is.  A CTA (ring) or warp (short) covers
     ``tile_cols`` output columns (default :func:`ring_tile_cols` and
     :func:`short_tile_cols`; the override applies to the ring tile only).
-    128x128 and 8x128 float32 blocks take the FMA tile, float32 blocks of
-    every other shape the generic FMA tile.  The ring, short and generic
-    tiles skip padding slots: they rely on the packers' layout, where a
-    row's real blocks come first and every later slot at column-block 0
+    Both tiles skip padding slots: they rely on the packers' layout, where
+    a row's real blocks come first and every later slot at column-block 0
     holds zeros (``tests/test_torch_padding.py`` holds every packer to it).
     """
     if V.device.type == "cpu":
@@ -262,20 +262,22 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
             rc = lib.bcsr_spmm_ell_bf16_launch(
                 mat.bcols.data_ptr(), mat.blocks.data_ptr(), Vb.data_ptr(),
                 Vb.shape[1], out.data_ptr(), mat.Kb, maxblk, D8, cols, stream)
+        elif route == "ring_f32":
+            rc = lib.bcsr_spmm_ell_ring_f32_launch(
+                mat.bcols.data_ptr(), mat.blocks.data_ptr(), Vk.data_ptr(),
+                out.data_ptr(), mat.Kb, maxblk, D8,
+                ring_cols(D8, tile_cols), stream)
         elif route == "short_bf16":
             cols, Vb = short_operand(Vk)
             rc = lib.bcsr_spmm_ell_short_launch(
                 mat.bcols.data_ptr(), mat.blocks.data_ptr(), mat.Brow, mat.B,
                 Vb.data_ptr(), Vb.shape[1], out.data_ptr(), mat.Kb, maxblk,
                 D8, cols, stream)
-        elif route == "fma":
-            rc = lib.bcsr_spmm_ell_launch(
-                mat.bcols.data_ptr(), mat.blocks.data_ptr(), mat.Brow,
-                Vk.data_ptr(), out.data_ptr(), mat.Kb, maxblk, D8, stream)
         else:
-            rc = lib.bcsr_spmm_ell_generic_launch(
+            rc = lib.bcsr_spmm_ell_short_f32_launch(
                 mat.bcols.data_ptr(), mat.blocks.data_ptr(), mat.Brow, mat.B,
-                Vk.data_ptr(), out.data_ptr(), mat.Kb, maxblk, D8, stream)
+                Vk.data_ptr(), out.data_ptr(), mat.Kb, maxblk, D8,
+                short_tile_cols(D8), stream)
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm: launch failed with cudaError {rc}")
     bcsr_spmm.launches += 1
@@ -525,17 +527,25 @@ def ring_tile_cols(D: int) -> int:
     return next((c for c in RING_TILE_COLS if c >= D), RING_TILE_COLS[-1])
 
 
-def ring_operand(V: torch.Tensor, tile_cols: Optional[int] = None
-                 ) -> Tuple[int, torch.Tensor]:
-    """(columns per CTA, V rounded to bfloat16) for the ring tile.  The
-    rounding is the plain version's cast (round to nearest even), so every
-    product is the same; columns past D up to a whole number of tiles are
-    zero.  ``tile_cols`` overrides :func:`ring_tile_cols`."""
-    D = V.shape[1]
-    cols = ring_tile_cols(D) if tile_cols is None else int(tile_cols)
-    if cols not in RING_TILE_COLS:
+def ring_cols(D: int, tile_cols: Optional[int] = None) -> int:
+    """Columns per CTA of the ring tile: ``tile_cols``, which must be one of
+    ``RING_TILE_COLS``, or :func:`ring_tile_cols` of D."""
+    if tile_cols is None:
+        return ring_tile_cols(D)
+    if int(tile_cols) not in RING_TILE_COLS:
         raise ValueError(f"tile_cols must be one of {RING_TILE_COLS}, "
                          f"got {tile_cols}")
+    return int(tile_cols)
+
+
+def ring_operand(V: torch.Tensor, tile_cols: Optional[int] = None
+                 ) -> Tuple[int, torch.Tensor]:
+    """(columns per CTA, V rounded to bfloat16) for the bfloat16 ring tile.
+    The rounding is the plain version's cast (round to nearest even), so
+    every product is the same; columns past D up to a whole number of tiles
+    are zero.  ``tile_cols`` overrides :func:`ring_tile_cols`."""
+    D = V.shape[1]
+    cols = ring_cols(D, tile_cols)
     ldv = -(-D // cols) * cols
     if ldv == D:
         return cols, V.to(torch.bfloat16)
@@ -551,7 +561,7 @@ SHORT_TILE_COLS = (16, 32, 48, 64, 96, 128)
 
 # The routes of the shapes without a 128x128 fast path (counted by the
 # wrappers' ``generic_launches``).
-GENERIC_ROUTES = ("short_bf16", "generic_f32")
+GENERIC_ROUTES = ("short_bf16", "short_f32")
 
 
 def spmm_route(kind: str, Br: int, Bc: int, dtype) -> str:
@@ -560,12 +570,12 @@ def spmm_route(kind: str, Br: int, Bc: int, dtype) -> str:
 
     * ``"ring"``: 128x128 bfloat16 blocks (the cp.async ring tile of the
       flat and block-ELL kernels, the TMA/wgmma ring of the V-resident one);
-    * ``"fma"``: 128x128 float32 blocks, and 8x128 float32 blocks on
-      block-ELL (the FMA tiles);
-    * ``"short_bf16"``: bfloat16 blocks of every other shape (the
-      short-block tensor-core tile);
-    * ``"generic_f32"``: float32 blocks of every other shape (the generic
-      FMA tile).
+    * ``"ring_f32"``: 128x128 float32 blocks on the flat and block-ELL
+      kernels (the ring tile, three tf32 products per pair);
+    * ``"fma"``: 128x128 float32 blocks on the V-resident kernel (its
+      CUDA-core FMA body);
+    * ``"short_bf16"``, ``"short_f32"``: blocks of every other shape (the
+      short-block tensor-core tile; float32 as three tf32 products).
     """
     if kind not in ("flat", "ell", "vres"):
         raise ValueError(f"spmm_route: unknown kernel kind {kind!r}")
@@ -573,10 +583,35 @@ def spmm_route(kind: str, Br: int, Bc: int, dtype) -> str:
         raise ValueError(f"spmm_route: no kernel for {dtype} blocks")
     bf16 = dtype == torch.bfloat16
     if (Br, Bc) == (128, 128):
-        return "ring" if bf16 else "fma"
-    if bf16:
-        return "short_bf16"
-    return "fma" if kind == "ell" and (Br, Bc) == (8, 128) else "generic_f32"
+        return "ring" if bf16 else "fma" if kind == "vres" else "ring_f32"
+    return "short_bf16" if bf16 else "short_f32"
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    the nearest value with 10 explicit mantissa bits, ties away from zero,
+    so the low 13 bits of the result are zero; non-finite values pass
+    through.  The float32 tiles round every finite value so, with the same
+    integer operations.  With :func:`tf32_split_matmul`, the tests' model
+    of the kernels' arithmetic (no path of the port calls it)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    # Adding half of the dropped part to the magnitude bits rounds a tie
+    # away from zero; a carry moves into the exponent as it should.
+    up = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), up, x)
+
+
+def tf32_split_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` of float32 operands as the float32 tiles take it (3xTF32):
+    each operand split as hi = tf32(x), lo = tf32(x - hi)
+    (:func:`tf32_round`), the product A_lo @ B_hi + A_hi @ B_lo + A_hi @
+    B_hi; A_lo @ B_lo is dropped.  Sums in float32 (the kernels start each
+    8-deep step's three products from zero and add them to float32 sums)."""
+    Ah, Bh = tf32_round(A), tf32_round(B)
+    Al, Bl = tf32_round(A - Ah), tf32_round(B - Bh)
+    return (Al @ Bh + Ah @ Bl) + Ah @ Bh
 
 
 def short_tile_cols(D: int) -> int:
@@ -644,13 +679,12 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     ``GENERIC_ROUTES``.
 
     The body follows :func:`spmm_route`, as in :func:`bcsr_spmm`: 128x128
-    bfloat16 blocks take the tensor-core ring tile (``tile_cols`` output
-    columns per CTA, default :func:`ring_tile_cols`), every other bfloat16
-    shape the short-block tensor-core tile, with V rounded to bfloat16 here
-    once; 128x128 float32 blocks take the FMA tile, every other float32
-    shape the generic FMA tile.  All but the FMA tile skip the slots that
-    pad a row to a multiple of G (column-block 0 after the row's first
-    slot, all zeros)."""
+    blocks take the tensor-core ring tile (``tile_cols`` output columns per
+    CTA, default :func:`ring_tile_cols`), every other shape the short-block
+    tensor-core tile, in bfloat16 (V rounded to bfloat16 here once) or
+    float32 (three tf32 products per pair).  Both skip the slots that pad a
+    row to a multiple of G (column-block 0 after the row's first slot, all
+    zeros)."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":
@@ -674,19 +708,19 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
             rc = lib.bsr_spmm_flat_bf16_launch(
                 *ptrs, Vb.data_ptr(), Vb.shape[1], out.data_ptr(), mat.Kbr,
                 mat.G, D8, cols, stream)
+        elif route == "ring_f32":
+            rc = lib.bsr_spmm_flat_ring_f32_launch(
+                *ptrs, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, D8,
+                ring_cols(D8, tile_cols), stream)
         elif route == "short_bf16":
             cols, Vb = short_operand(Vk)
             rc = lib.bsr_spmm_flat_short_launch(
                 *ptrs, mat.Br, mat.Bc, Vb.data_ptr(), Vb.shape[1],
                 out.data_ptr(), mat.Kbr, mat.G, D8, cols, stream)
-        elif route == "fma":
-            rc = lib.bsr_spmm_flat_launch(
-                *ptrs, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, D8,
-                stream)
         else:
-            rc = lib.bsr_spmm_flat_generic_launch(
+            rc = lib.bsr_spmm_flat_short_f32_launch(
                 *ptrs, mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr,
-                mat.G, D8, stream)
+                mat.G, D8, short_tile_cols(D8), stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_flat: launch failed with cudaError {rc}")
     bsr_spmm_flat.launches += 1
@@ -720,8 +754,8 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     what the kernel keeps in L2; bfloat16 blocks run on persistent CTAs that
     take the block-rows in index order from a counter zeroed on the stream
     before each launch.  Block shapes other than 128x128 go through the flat
-    kernel's short-block (bfloat16) and generic (float32) tiles, built into
-    this kernel's library, with no residency hint (:func:`spmm_route`).
+    kernel's short-block tile (bfloat16 or float32), built into this
+    kernel's library, with no residency hint (:func:`spmm_route`).
     ``bsr_spmm_vres.launches`` counts kernel launches,
     ``bsr_spmm_vres.generic_launches`` those of them on a route of
     ``GENERIC_ROUTES``."""
@@ -763,9 +797,9 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
                 *ptrs, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, D8,
                 stream)
         else:
-            rc = lib.bsr_spmm_vres_generic_launch(
+            rc = lib.bsr_spmm_vres_short_f32_launch(
                 *ptrs, mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr,
-                mat.G, D8, stream)
+                mat.G, D8, short_tile_cols(D8), stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_vres: launch failed with cudaError {rc}")
     bsr_spmm_vres.launches += 1

@@ -12,17 +12,22 @@ start every ``nvcc`` together.
 * ``bsr_spmm_vres``  — flat block-CSR SpMM with V resident in L2
   (``bsr_spmm_vres.cu``).
 
-The three share their tile code through ``spmm_tile.cuh`` (the tensor-core
-ring tile of 128x128 bfloat16 blocks, the FMA tiles of float32 blocks, and
-the short-block tensor-core tile of every other bfloat16 shape).  Each
-library has four entry points, one per route of
-:func:`sig_sdp_mmw_torch.ops.bcsr.spmm_route`: ``*_launch`` ("fma":
-CUDA-core FMA, float32 blocks and V), ``*_bf16_launch`` ("ring": 128x128
-bfloat16 blocks; for the V-resident kernel a TMA ring feeding wgmma),
-``*_short_launch`` ("short_bf16": bfloat16 blocks of any other shape, Br and
-Bc at run time) and ``*_generic_launch`` ("generic_f32": float32 blocks of
-any other shape).  The V-resident kernel's last two are the flat kernel's
-bodies.
+The three share their tile code through ``spmm_tile.cuh``: the
+tensor-core ring tile of 128x128 blocks and the short-block tensor-core tile
+of every other shape, each in bfloat16 and in float32 (three tf32 products
+per pair, float32 accuracy).  The entry points, one per route of
+:func:`sig_sdp_mmw_torch.ops.bcsr.spmm_route`:
+
+* ``*_bf16_launch`` ("ring": 128x128 bfloat16 blocks; for the V-resident
+  kernel a TMA ring feeding wgmma);
+* ``*_ring_f32_launch`` ("ring_f32": 128x128 float32 blocks; flat and
+  block-ELL kernels);
+* ``bsr_spmm_vres_launch`` ("fma": the V-resident kernel's 128x128 float32
+  blocks, CUDA-core FMA);
+* ``*_short_launch`` ("short_bf16") and ``*_short_f32_launch``
+  ("short_f32"): blocks of any other shape, Br and Bc at run time (the
+  V-resident kernel's are the flat kernel's bodies).
+
 A library's build hash covers the headers of ``csrc/`` as well as its own
 source.
 """
@@ -38,8 +43,12 @@ from typing import Dict, Tuple
 from sig_sdp_mmw_torch.utils.build import build_shared_library
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+# --split-compile=3: each library's device code is optimised in three
+# threads, so the three libraries, built at once, share the card host's 8
+# cores (about 26 s instead of 57 on an H100 host, nvcc 12.9).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=3"]
 
 _lock = threading.Lock()
 _name_locks: Dict[Tuple[str, ...], threading.Lock] = {}
@@ -88,36 +97,36 @@ def load_kernel_library(name: str, defines: Tuple[str, ...] = ()
 def bsr_spmm_flat_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = load_kernel_library("bsr_spmm_flat", defines)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_spmm_flat_launch.restype = i32
-    lib.bsr_spmm_flat_launch.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                         vp]
     lib.bsr_spmm_flat_bf16_launch.restype = i32
     lib.bsr_spmm_flat_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, i32,
                                               i32, i32, i32, vp]
-    lib.bsr_spmm_flat_generic_launch.restype = i32
-    lib.bsr_spmm_flat_generic_launch.argtypes = [vp, vp, vp, i32, i32, vp, vp,
-                                                 i32, i32, i32, vp]
+    lib.bsr_spmm_flat_ring_f32_launch.restype = i32
+    lib.bsr_spmm_flat_ring_f32_launch.argtypes = [vp, vp, vp, vp, vp, i32,
+                                                  i32, i32, i32, vp]
     lib.bsr_spmm_flat_short_launch.restype = i32
     lib.bsr_spmm_flat_short_launch.argtypes = [vp, vp, vp, i32, i32, vp, i32,
                                                vp, i32, i32, i32, i32, vp]
+    lib.bsr_spmm_flat_short_f32_launch.restype = i32
+    lib.bsr_spmm_flat_short_f32_launch.argtypes = [vp, vp, vp, i32, i32, vp,
+                                                   vp, i32, i32, i32, i32, vp]
     return lib
 
 
 def bcsr_spmm_ell_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = load_kernel_library("bcsr_spmm_ell", defines)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bcsr_spmm_ell_launch.restype = i32
-    lib.bcsr_spmm_ell_launch.argtypes = [vp, vp, i32, vp, vp, i64, i32, i32,
-                                         vp]
     lib.bcsr_spmm_ell_bf16_launch.restype = i32
     lib.bcsr_spmm_ell_bf16_launch.argtypes = [vp, vp, vp, i32, vp, i64, i32,
                                               i32, i32, vp]
-    lib.bcsr_spmm_ell_generic_launch.restype = i32
-    lib.bcsr_spmm_ell_generic_launch.argtypes = [vp, vp, i32, i32, vp, vp,
-                                                 i64, i32, i32, vp]
+    lib.bcsr_spmm_ell_ring_f32_launch.restype = i32
+    lib.bcsr_spmm_ell_ring_f32_launch.argtypes = [vp, vp, vp, vp, i64, i32,
+                                                  i32, i32, vp]
     lib.bcsr_spmm_ell_short_launch.restype = i32
     lib.bcsr_spmm_ell_short_launch.argtypes = [vp, vp, i32, i32, vp, i32, vp,
                                                i64, i32, i32, i32, vp]
+    lib.bcsr_spmm_ell_short_f32_launch.restype = i32
+    lib.bcsr_spmm_ell_short_f32_launch.argtypes = [vp, vp, i32, i32, vp, vp,
+                                                   i64, i32, i32, i32, vp]
     return lib
 
 
@@ -130,12 +139,12 @@ def bsr_spmm_vres_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.bsr_spmm_vres_bf16_launch.restype = i32
     lib.bsr_spmm_vres_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, vp,
                                               i32, i32, i32, i32, vp]
-    lib.bsr_spmm_vres_generic_launch.restype = i32
-    lib.bsr_spmm_vres_generic_launch.argtypes = [vp, vp, vp, i32, i32, vp, vp,
-                                                 i32, i32, i32, vp]
     lib.bsr_spmm_vres_short_launch.restype = i32
     lib.bsr_spmm_vres_short_launch.argtypes = [vp, vp, vp, i32, i32, vp, i32,
                                                vp, i32, i32, i32, i32, vp]
+    lib.bsr_spmm_vres_short_f32_launch.restype = i32
+    lib.bsr_spmm_vres_short_f32_launch.argtypes = [vp, vp, vp, i32, i32, vp,
+                                                   vp, i32, i32, i32, i32, vp]
     return lib
 
 

@@ -1,6 +1,6 @@
 // Flat block-CSR SpMM with V held resident for Hopper: out = A @ V, A stored
 // as only its real blocks, G per step (128x128; other shapes through the
-// flat kernel's short-block and generic tiles).
+// flat kernel's short-block tile).
 //
 // Replaces the TPU kernel sig_sdp_mmw_tpu/ops/bcsr.py::bsr_spmm_pallas_vres:
 // the contract of bsr_spmm_pallas_flat (V cast to the block dtype once,
@@ -55,10 +55,9 @@
 // design: one CTA per (block-row, 64-column D tile) on a one-dimensional
 // grid, the V column-blocks of a step stacked in shared memory, fp32 FMA
 // (full float32, no TF32).  Block shapes other than 128x128 go through the
-// flat kernel's bodies (spmm_tile.cuh): bfloat16 blocks the short-block
-// tensor-core tile (bsr_spmm_vres_short_launch), float32 blocks the generic
-// FMA tile (bsr_spmm_vres_generic_launch); V stays in device memory and L2
-// without a residency hint.
+// flat kernel's short-block tile (spmm_tile.cuh), bfloat16
+// (bsr_spmm_vres_short_launch) or float32 (bsr_spmm_vres_short_f32_launch);
+// V stays in device memory and L2 without a residency hint.
 //
 // Variants of the bf16 path for experiments/bench_vres_parts.py (-D at
 // build time): VRES_STAGES=n ring depth; VRES_ONE_ITEM_PER_CTA one CTA per
@@ -79,8 +78,8 @@
 namespace {
 
 using spmm::BC;
-using spmm::DT;
-using spmm::KC;
+constexpr int DT = 64;   // output columns per CTA of the float32 path
+constexpr int KC = 32;   // contraction slice it stages per pass
 
 // ---------------------------------------------------------------------------
 // bfloat16 blocks: TMA ring, wgmma, persistent CTAs
@@ -711,28 +710,28 @@ int bsr_spmm_vres_launch(const void* row_ptr, const void* bcols,
 }
 
 // Block shapes other than 128x128 (Br x Bc at run time): the contract of
-// the 128x128 paths through the flat kernel's bodies (spmm_tile.cuh), with
-// no residency hint.  Float32 blocks: the generic FMA tile, float32 V
-// [nrows, D].  Returns the cudaError_t of the launch.
-int bsr_spmm_vres_generic_launch(const void* row_ptr, const void* bcols,
-                                 const void* blocks, int Br, int Bc,
-                                 const void* V, void* out, int Kbr, int G,
-                                 int D, void* stream) {
-  return spmm::launch_flat_generic(row_ptr, bcols, blocks, Br, Bc, V, out,
-                                   Kbr, G, D,
-                                   reinterpret_cast<cudaStream_t>(stream));
-}
-
-// bfloat16 blocks: the short-block tensor-core tile, Vb [nrows, ldv] bf16
-// rounded by the wrapper, ncols output columns per warp (16, 32, 48, 64, 96
-// or 128; ldv >= ceil(D / ncols) * ncols).  Returns the
+// the 128x128 paths through the flat kernel's short-block tile
+// (spmm_tile.cuh), with no residency hint.  bfloat16 blocks: Vb [nrows,
+// ldv] bf16 rounded by the wrapper, ncols output columns per warp (16, 32,
+// 48, 64, 96 or 128; ldv >= ceil(D / ncols) * ncols).  Returns the
 // cudaError_t of the launch.
 int bsr_spmm_vres_short_launch(const void* row_ptr, const void* bcols,
                                const void* blocks, int Br, int Bc,
                                const void* Vb, int ldv, void* out, int Kbr,
                                int G, int D, int ncols, void* stream) {
-  return spmm::launch_short_bf16<false>(
+  return spmm::launch_short<__nv_bfloat16, false>(
       row_ptr, bcols, blocks, Br, Bc, Vb, ldv, out, Kbr, G, D, ncols,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Float32 blocks of those shapes (3xTF32): V [nrows, D] float32, ncols as
+// above.  Returns the cudaError_t of the launch.
+int bsr_spmm_vres_short_f32_launch(const void* row_ptr, const void* bcols,
+                                   const void* blocks, int Br, int Bc,
+                                   const void* V, void* out, int Kbr, int G,
+                                   int D, int ncols, void* stream) {
+  return spmm::launch_short<float, false>(
+      row_ptr, bcols, blocks, Br, Bc, V, D, out, Kbr, G, D, ncols,
       reinterpret_cast<cudaStream_t>(stream));
 }
 

@@ -33,7 +33,7 @@ def test_flat_kernel_refuses_what_it_cannot_take(rand512):
     sq = tb.bsr_flat_from_csr(rand512, block=128, group=4)
     V = torch.zeros((512, 32))
     assert tb.flat_kernel_unsupported(sq, V) is None
-    for block in ((8, 128), (16, 128), 64, 16):   # the generic tile's shapes
+    for block in ((8, 128), (16, 128), 64, 16):   # the short-block tile's shapes
         other = tb.bsr_flat_from_csr(rand512, block=block, group=4)
         assert tb.flat_kernel_unsupported(other, V) is None
     f64 = tb.bsr_flat_from_csr(rand512, block=128, group=4,
@@ -89,7 +89,7 @@ def test_ell_kernel_refuses_what_it_cannot_take(rand512):
     assert tb.ell_kernel_unsupported(sq, V) is None
     assert tb.ell_kernel_unsupported(tb.bcsr_from_csr(rand512, block=(8, 128)),
                                      V) is None
-    for block in ((16, 128), 64, 16, (32, 64)):   # the generic tile's shapes
+    for block in ((16, 128), 64, 16, (32, 64)):   # the short-block tile's shapes
         other = tb.bcsr_from_csr(rand512, block=block)
         assert tb.ell_kernel_unsupported(other, V) is None
     f64 = tb.bcsr_from_csr(rand512, block=128, dtype=torch.float64)
@@ -299,13 +299,14 @@ def _edge_case(kind, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["ell", "flat", "vres"])
-@pytest.mark.parametrize("D", [8, 48, 128])
+@pytest.mark.parametrize("D", [1, 8, 32, 48, 128, 200])
 def test_kernels_on_edge_rows_on_cuda(D, kind, dt):
     """An empty block-row (zero output), a row whose first real block is
     column-block 0 and a row with no padding, through the three kernels
-    (5 block-rows: fewer than the V-resident kernel's persistent CTAs),
-    against the plain version (which multiplies every slot) to 1e-5 of
-    max|out|."""
+    (5 block-rows: fewer than the V-resident kernel's persistent CTAs), at
+    D from 1 (padded to 8) to 200 (two 128-column tiles, the second
+    part-full), against the plain version (which multiplies every slot) to
+    1e-5 of max|out|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mat, kernel, plain = _edge_case(kind, getattr(torch, dt))
@@ -316,10 +317,10 @@ def test_kernels_on_edge_rows_on_cuda(D, kind, dt):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
-# The bf16 tiles whose repeat launches must agree bit for bit: the ring
-# tile (block-ELL, flat, flat with D over two CTAs) and the short-block tile
-# (block-ELL at the packers' default 8x128, flat at the mid-K search's 32x32
-# and at 8x8, V-resident at 8x128).
+# The tiles whose repeat launches must agree bit for bit, in bfloat16 and
+# float32: the ring tile (block-ELL, flat, flat with D over two CTAs) and
+# the short-block tile (block-ELL at the packers' default 8x128, flat at the
+# mid-K search's 32x32 and at 8x8, V-resident at 8x128).
 BF16_TILE_CASES = {"ell": ("ell", 128), "flat": ("flat", 128),
                    "flat-split": ("flat", 128),
                    "short-ell-8x128": ("ell", (8, 128)),
@@ -329,25 +330,26 @@ BF16_TILE_CASES = {"ell": ("ell", 128), "flat": ("flat", 128),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", list(BF16_TILE_CASES))
 @pytest.mark.parametrize("D", [48, 128])
-def test_bf16_tile_is_deterministic_on_cuda(D, kind):
-    """Repeat launches of the bf16 ring and short-block tiles are bitwise
-    equal (one CTA or warp owns each output tile and sums its slots in a
-    fixed order), also with D split over several CTAs; each agrees with its
-    plain version to 1e-5 of max|out|."""
+def test_bf16_tile_is_deterministic_on_cuda(D, kind, dt):
+    """Repeat launches of the ring and short-block tiles, bfloat16 and
+    float32, are bitwise equal (one CTA or warp owns each output tile and
+    sums its slots in a fixed order, no atomics), also with D split over
+    several CTAs; each agrees with its plain version to 1e-5 of max|out|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     S, Q, _ = generate_large_state_csr(10, 75e-4, seed=2)
     St = build_st_csr(S, Q)
     which, block = BF16_TILE_CASES[kind]
+    dtype = getattr(torch, dt)
     if which == "ell":
-        mat = tb.bcsr_from_csr(St, block=block, dtype=torch.bfloat16,
-                               device="cuda")
+        mat = tb.bcsr_from_csr(St, block=block, dtype=dtype, device="cuda")
         fn, plain = tb.bcsr_spmm, tb.bcsr_spmm_reference
     else:
-        mat = tb.bsr_flat_from_csr(St, block=block, group=8,
-                                   dtype=torch.bfloat16, device="cuda")
+        mat = tb.bsr_flat_from_csr(St, block=block, group=8, dtype=dtype,
+                                   device="cuda")
         fn = tb.bsr_spmm_vres if which == "vres" else tb.bsr_spmm_flat
         plain = tb.bsr_spmm_flat_reference
     V = torch.randn((mat.nrows, D), device="cuda",
@@ -392,8 +394,7 @@ def test_vres_kernel_on_long_and_many_rows_on_cuda(Kbr, G, D, dt):
 # Block shapes without a 128x128 fast path: Br in 8..128 by Bc in 16..128,
 # the square 8/16/32/64 blocks (8x8 is the graft entry's), a block taller
 # than 128 rows (split into row slices) and a shape whose Bc is not a
-# multiple of the 32-deep slice nor of 16 (the short tile's zero tail).
-# Float32 8x128 on block-ELL keeps its own FMA path.
+# multiple of the slice depth nor of 16 (the short tile's zero tail).
 GENERIC_SHAPES = [(8, 128), (16, 128), (32, 128), (64, 128), (8, 16),
                   (16, 16), (32, 32), (64, 64), (128, 16), (16, 64),
                   (256, 32), (24, 40), (8, 8)]
@@ -418,12 +419,10 @@ def _generic_case(kind, block, dt, G=4):
                          ids=[f"{a}x{b}" for a, b in GENERIC_SHAPES])
 @pytest.mark.parametrize("kind", ["flat", "ell", "vres"])
 def test_generic_tile_matches_reference_on_cuda(kind, block, D, dt):
-    """The short-block (bf16) and generic (float32) tiles of the three
-    kernels against their plain versions on the card, at every block shape
-    without a 128x128 fast path and D from 1 to 200 (two 128-column tiles):
-    to 1e-5 of max|out|, two launches bitwise equal, counted as generic
-    launches (except float32 8x128 on the block-ELL kernel, its own FMA
-    path)."""
+    """The short-block tile (bfloat16 and float32) of the three kernels
+    against their plain versions on the card, at every block shape without
+    a 128x128 fast path and D from 1 to 200 (two 128-column tiles): to 1e-5
+    of max|out|, two launches bitwise equal, counted as generic launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mat, kernel, plain = _generic_case(kind, block, getattr(torch, dt))
@@ -434,11 +433,8 @@ def test_generic_tile_matches_reference_on_cuda(kind, block, D, dt):
     assert torch.equal(got, kernel(mat, V)) and got.shape == (mat.nrows, D)
     assert kernel.launches == n0 + 2
     route = tb.spmm_route(kind, *block, getattr(torch, dt))
-    assert route == ("short_bf16" if dt == "bfloat16" else
-                     "fma" if kind == "ell" and block == (8, 128) else
-                     "generic_f32")
-    own_path = route == "fma"
-    assert kernel.generic_launches == g0 + (0 if own_path else 2)
+    assert route == ("short_bf16" if dt == "bfloat16" else "short_f32")
+    assert kernel.generic_launches == g0 + 2
     want = plain(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
@@ -453,21 +449,22 @@ def _long_operand(K, seed=5):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["flat", "vres", "ell"])
-def test_generic_tile_takes_more_than_65535_block_rows_on_cuda(kind):
+def test_generic_tile_takes_more_than_65535_block_rows_on_cuda(kind, dt):
     """8-row blocks of a K = 600,000 operand: 75,000 block-rows, past the
     65,535 a grid's second dimension holds; against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     M = _long_operand(600_000)
+    dtype = getattr(torch, dt)
     if kind == "ell":
-        mat = tb.bcsr_from_csr(M, block=(8, 128), dtype=torch.bfloat16,
-                               device="cuda")
+        mat = tb.bcsr_from_csr(M, block=(8, 128), dtype=dtype, device="cuda")
         kernel, plain = tb.bcsr_spmm, tb.bcsr_spmm_reference
         assert mat.Kb > 65535
     else:
-        mat = tb.bsr_flat_from_csr(M, block=(8, 128), group=2,
-                                   dtype=torch.bfloat16, device="cuda")
+        mat = tb.bsr_flat_from_csr(M, block=(8, 128), group=2, dtype=dtype,
+                                   device="cuda")
         kernel = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
         plain = tb.bsr_spmm_flat_reference
         assert mat.Kbr > 65535
@@ -483,28 +480,129 @@ ROUTE_SHAPES = [(128, 128), *GENERIC_SHAPES]
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["flat", "ell", "vres"])
 def test_spmm_route_names_one_body_per_shape(kind, dt):
-    """spmm_route: 128x128 takes the ring tile in bfloat16 and the FMA tile
-    in float32 on every kernel; every other bfloat16 shape the short-block
-    tile; every other float32 shape the generic tile, except 8x128 on
-    block-ELL (its FMA tile).  Only the last two routes count as generic
-    launches; other kinds and dtypes are refused."""
+    """spmm_route: 128x128 takes the ring tile, in bfloat16 on every kernel
+    and in float32 on the flat and block-ELL kernels (the V-resident
+    kernel keeps its FMA body); every other shape the short-block tile, in
+    either dtype.  Only the short-block routes count as generic launches;
+    other kinds and dtypes are refused."""
     dtype = getattr(torch, dt)
     for block in ROUTE_SHAPES:
         route = tb.spmm_route(kind, *block, dtype)
         if block == (128, 128):
-            want = "ring" if dt == "bfloat16" else "fma"
-        elif dt == "bfloat16":
-            want = "short_bf16"
+            want = ("ring" if dt == "bfloat16" else
+                    "fma" if kind == "vres" else "ring_f32")
         else:
-            want = "fma" if (kind, block) == ("ell", (8, 128)) \
-                else "generic_f32"
+            want = "short_bf16" if dt == "bfloat16" else "short_f32"
         assert route == want, (kind, block, dt)
         assert (route in tb.GENERIC_ROUTES) == (want in ("short_bf16",
-                                                         "generic_f32"))
+                                                         "short_f32"))
     with pytest.raises(ValueError, match="kind"):
         tb.spmm_route("dense", 8, 128, dtype)
     with pytest.raises(ValueError, match="float64"):
         tb.spmm_route(kind, 8, 128, torch.float64)
+
+
+# Float32 bit patterns and their TF32 rounding as cvt.rna.tf32.f32 gives it
+# (to nearest, ties away from zero, 10 explicit mantissa bits kept).
+TF32_ROUNDING = [
+    (0x3F800000, 0x3F800000),   # 1: already TF32
+    (0x3F801000, 0x3F802000),   # 1 + 2^-11, a tie above an even value: up
+    (0xBF801000, 0xBF802000),   # its negative: away from zero, down
+    (0x3F800FFF, 0x3F800000),   # just below that tie
+    (0x3F801001, 0x3F802000),   # just above it
+    (0x3F803000, 0x3F804000),   # a tie above an odd value
+    (0x3FFFF000, 0x40000000),   # 2 - 2^-11: the carry moves the exponent
+    (0x00001000, 0x00002000),   # a subnormal tie
+    (0x80000000, 0x80000000),   # -0
+    (0x7F800000, 0x7F800000),   # inf
+    (0x7FC00001, 0x7FC00001),   # a NaN passes through
+]
+
+
+@pytest.mark.parametrize("bits,want", TF32_ROUNDING,
+                         ids=[f"{b:08x}" for b, _ in TF32_ROUNDING])
+def test_tf32_round_is_cvt_rna(bits, want):
+    """The model of the float32 tiles' split: round to nearest with ties
+    away from zero (not to even), the low 13 bits zero for every finite
+    value, non-finite values unchanged."""
+    x = torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(
+        torch.float32)
+    got = int(tb.tf32_round(x).view(torch.int32)[0]) & 0xFFFFFFFF
+    assert got == want
+    if bool(torch.isfinite(x)):
+        assert got & 0x1FFF == 0
+
+
+def _spread_operands(seed, D):
+    """rand512's pattern with values of random sign whose magnitudes spread
+    log-uniformly over 1e-6..1e2, and a [512, D] V spread alike."""
+    rng = np.random.default_rng(seed)
+    M = scipy.sparse.random(512, 512, density=0.05, random_state=seed,
+                            format="csr")
+    M.data = rng.choice([-1.0, 1.0], M.nnz) * 10 ** rng.uniform(-6, 2, M.nnz)
+    V = rng.choice([-1.0, 1.0], (512, D)) * 10 ** rng.uniform(-6, 2, (512, D))
+    return (torch.from_numpy(M.toarray().astype(np.float32)),
+            torch.from_numpy(V.astype(np.float32)))
+
+
+@pytest.mark.parametrize("seed,D", [(0, 1), (1, 8), (2, 48), (3, 128)])
+def test_tf32_split_product_keeps_float32_accuracy(seed, D):
+    """Three tf32 products per pair (the float32 tiles' arithmetic) over
+    operands spread across eight decades: within 1e-6 of max|out| of the
+    float64 product (each pair's error is below 3 * 2^-22 of |a*b|) and
+    within 1e-5, the kernel tests' tolerance, of the plain float32 product."""
+    A, V = _spread_operands(seed, D)
+    got = tb.tf32_split_matmul(A, V)
+    exact = A.double() @ V.double()
+    scale = float(exact.abs().max())
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
+    plain = A @ V
+    assert float((got - plain).abs().max()) <= 1e-5 * float(
+        plain.abs().max())
+
+
+@pytest.mark.parametrize("seed,D", [(0, 1), (1, 8), (2, 48), (3, 128)])
+def test_single_tf32_product_misses_the_kernel_tolerance(seed, D):
+    """One tf32 product per pair keeps 11 bits of each operand: on the same
+    operands it misses the kernels' 1e-5 of max|out| against the plain
+    float32 product, which is why the float32 tiles take three."""
+    A, V = _spread_operands(seed, D)
+    one = tb.tf32_round(A) @ tb.tf32_round(V)
+    plain = A @ V
+    assert float((one - plain).abs().max()) > 1e-5 * float(
+        plain.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "ell"])
+@pytest.mark.parametrize("block", [128, (8, 128), 8],
+                         ids=["128x128", "8x128", "8x8"])
+@pytest.mark.parametrize("D", [8, 48, 128])
+def test_float32_tiles_keep_float32_accuracy_on_cuda(D, block, kind):
+    """Float32 blocks and V spread over eight decades (1e-6..1e2, random
+    signs) through the float32 ring and short-block tiles: within 1e-6 of
+    max|out| of the float64 product, as the CPU model of the split is, and
+    within 1e-5 of the plain float32 version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    M = build_st_csr(*generate_large_state_csr(10, 75e-4, seed=2)[:2])
+    M.data = rng.choice([-1.0, 1.0], M.nnz) * 10 ** rng.uniform(-6, 2, M.nnz)
+    if kind == "ell":
+        mat = tb.bcsr_from_csr(M, block=block, device="cuda")
+        kernel, plain = tb.bcsr_spmm, tb.bcsr_spmm_reference
+    else:
+        mat = tb.bsr_flat_from_csr(M, block=block, group=8, device="cuda")
+        kernel, plain = tb.bsr_spmm_flat, tb.bsr_spmm_flat_reference
+    V = torch.from_numpy((rng.choice([-1.0, 1.0], (mat.nrows, D)) * 10
+                          ** rng.uniform(-6, 2, (mat.nrows, D))
+                          ).astype(np.float32)).to("cuda")
+    got = kernel(mat, V)
+    exact = plain(mat, V.double())
+    scale = float(exact.abs().max())
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
+    want = plain(mat, V)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_short_operand_rounds_like_the_plain_version():

@@ -143,8 +143,8 @@ def test_port_sources_name_no_jax():
 
 
 def test_slice_speculative_search_on_generic_blocks(port_run):
-    """search="speculative" on 16x16 blocks (the kernels' generic tile on
-    the card): rem 0, verified, within 1 of the binary search's Z, with the
+    """search="speculative" on 16x16 blocks (the kernels' short-block tile
+    on the card): rem 0, verified, within 1 of the binary search's Z, with the
     waves and their candidates recorded."""
     rec = e2e_main(cell=10, nit=NIT, block=16, flat_group=4, device="cpu",
                    search="speculative", wave=4)

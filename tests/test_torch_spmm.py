@@ -104,10 +104,10 @@ def test_row_chunk_matches_unchunked(rand512, block, chunk):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("block", [(8, 128), (16, 128), (16, 16)])
 def test_generic_shape_references_match_jax(block, dt):
-    """The plain versions at block shapes the kernels' generic tile takes on
-    the card, against the JAX package on the same inputs: bcsr_spmm_reference
+    """The plain versions at block shapes the kernels' short-block tile takes
+    on the card, against the JAX package on the same inputs: bcsr_spmm_reference
     vs bcsr_spmm and bsr_spmm_flat_reference vs bsr_spmm_pallas_flat
-    (interpret mode), K=256, D=24.  (On the card the generic tile is held to
+    (interpret mode), K=256, D=24.  (On the card the short-block tile is held to
     these plain versions, tests/test_torch_kernels.py.)"""
     jd, td = _DT[dt]
     M = scipy.sparse.random(256, 256, density=0.03, random_state=5,
