@@ -22,7 +22,8 @@
      K=1,009,200 S̃ and Q of the million-link path (bf16, D=48) against the
      plain version at row_chunk=2048;
    * V-resident flat (bsr_spmm_vres) on the same S̃: bf16 at G=8 (D=48
-     and 128) and G=32 (D=48, every row padded to 32 slots), then through
+     and 128) and G=32 (D=48, every row padded to 32 slots), float32 at
+     G=8 (D=32, 48, 64 and 128, its tma_f32 body), then through
      the SpMM bench entry point (sig_sdp_mmw_torch/experiments/
      bench_flat_spmm.py) at G=8 and G=32, which also runs the ELL and flat
      kernels on that operand;
@@ -43,7 +44,8 @@
      and D=128 (measured only; every main path keeps 128x128);
    * every float32 case also checks that its launch was counted on its
      route (ring_f32 for 128x128 on the flat and block-ELL kernels,
-     short_f32 for every other shape) and prints the route, its bound
+     tma_f32 on the V-resident kernel, short_f32 for every other shape)
+     and prints the route, its bound
      (float32 operations at the faster of the CUDA cores' float32 rate and
      three TF32 products on the tensor cores) and share, the plain
      version's and the library call's times (the comparison is printed,
@@ -68,8 +70,13 @@
    verify).  Then one solve (nit=150) at the search's first probe Z in
    each block dtype, the float32 one in the layout e2e_large(bf16=False)
    builds (128x128 float32 blocks, stored transpose, flat_group=8: the
-   ring_f32 route): ms per iteration and ub of each, ub finite.  Then
-   a short solve with the gap log
+   ring_f32 route): ms per iteration and ub of each, ub finite.  The bf16
+   solve then runs twice more with the same draws, each factor rounded on
+   the device (rounding_ell) with the same draws: the first repeat must
+   give the factor, ub_final and z_vec bit for bit; the second runs under
+   torch.use_deterministic_algorithms(True, warn_only=True), prints the ops
+   that warn and whether its bits match, and the mode is off after it.
+   Then a short solve with the gap log
    (MMWEll(nit=5, log_gap=True) at Z=16 on that instance's flat operands):
    its gap Lanczos sends D=1 through the flat kernel, and every gap entry
    must be finite.
@@ -253,10 +260,12 @@ def compare(name, mat, V, kernel, plain, iters=20, library=False):
 def check_route(tb, name, fn, kind, mat, V) -> str:
     """One launch of ``fn`` on ``mat @ V``, counted once and on the route
     its float32 blocks must take (ring_f32 at 128x128 on the flat and
-    block-ELL kernels, short_f32 at every other shape; a generic launch
-    exactly when the route is one of GENERIC_ROUTES).  Returns the route."""
+    block-ELL kernels, tma_f32 on the V-resident one, short_f32 at every
+    other shape; a generic launch exactly when the route is one of
+    GENERIC_ROUTES).  Returns the route."""
     Br, Bc = (mat.Brow, mat.B) if kind == "ell" else (mat.Br, mat.Bc)
-    want = "ring_f32" if (Br, Bc) == (128, 128) else "short_f32"
+    want = ("short_f32" if (Br, Bc) != (128, 128) else
+            "tma_f32" if kind == "vres" else "ring_f32")
     route = tb.spmm_route(kind, Br, Bc, mat.blocks.dtype)
     n0, g0 = fn.launches, fn.generic_launches
     fn(mat, V)
@@ -290,7 +299,19 @@ def f32_solve_check(tb, Z, nit=NIT) -> dict:
     blocks with stored transpose and flat_group=8 as e2e_large builds them
     (bf16=False: float32 blocks, the ring_f32 route of both kernels), with
     the same draws: ms per iteration and ub_final of each; both finite, the
-    float32 solve's products all on the flat and block-ELL kernels."""
+    float32 solve's products all on the flat and block-ELL kernels.
+
+    Repeatability: the bf16 solve runs twice more with the same draws, and
+    each of its three factors is rounded on the device (rounding_ell, the
+    wavefront route) with the same draws.  The first repeat must give the
+    first run's factor, ub_final and z_vec bit for bit.  The second runs
+    with torch.use_deterministic_algorithms(True, warn_only=True), which
+    swaps some ops for other implementations: it prints the ops that warn
+    and whether its bits match (not asserted), and the mode is off again
+    after it."""
+    import warnings
+
+    import numpy as np
     import torch
 
     from sig_sdp_mmw_torch.env.large import LargeEnv
@@ -301,8 +322,10 @@ def f32_solve_check(tb, Z, nit=NIT) -> dict:
     S, Q, h = env.generate_state_csr()
     ell = env.generate_ell(device="cuda")
     rec = {"Z": int(Z), "nit": nit}
-    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        alg = MMWEll(nit=nit, eta=ETA, use_bcsr=True, seed=SEED)
+
+    def solve(dt, rounding=False):
+        alg = MMWEll(nit=nit, eta=ETA, use_bcsr=True, seed=SEED,
+                     nattempt=NATTEMPT)
         alg.prepare(ell, S, Q, h_max=h, block=128, dtype=dt,
                     store_transpose=True, flat_group=GROUP)
         reset_launches(tb)
@@ -311,31 +334,76 @@ def f32_solve_check(tb, Z, nit=NIT) -> dict:
         alg.run_with_state(0, Z, ell)
         torch.cuda.synchronize()
         s = time.perf_counter() - t1
-        rec[name] = dict(ms_per_iteration=s / nit * 1e3,
-                         ub=float(alg.last_output.ub_final),
-                         flat=tb.bsr_spmm_flat.launches,
-                         ell=tb.bcsr_spmm.launches,
-                         generic=tb.bsr_spmm_flat.generic_launches
-                         + tb.bcsr_spmm.generic_launches)
+        out = alg.last_output
+        r = dict(ms_per_iteration=s / nit * 1e3, ub=float(out.ub_final),
+                 flat=tb.bsr_spmm_flat.launches, ell=tb.bcsr_spmm.launches,
+                 generic=tb.bsr_spmm_flat.generic_launches
+                 + tb.bcsr_spmm.generic_launches)
+        bits = None
+        if rounding:
+            z_vec, _, rem = alg.rounding(Z, out.X_half, ell)
+            r.update(rem=int(rem), route=alg.rounding_info[-1]["route"])
+            bits = (out.X_half.clone(), out.ub_final.clone(),
+                    np.asarray(z_vec).copy())
+        del alg
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r, bits
+
+    def same(a, b):
+        return {"factor": bool(torch.equal(a[0], b[0])),
+                "ub_final": bool(torch.equal(a[1], b[1])),
+                "z_vec": bool(np.array_equal(a[2], b[2]))}
+
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        rec[name], bits = solve(dt, rounding=dt == torch.bfloat16)
         log(f"[3 f32] {name} blocks, Z={Z}, nit={nit}: "
             f"{rec[name]['ms_per_iteration']:.3f} ms per iteration, ub "
             f"{rec[name]['ub']!r}; launches flat {rec[name]['flat']}, "
             f"block-ELL {rec[name]['ell']}")
-        del alg
-        gc.collect()
-        torch.cuda.empty_cache()
+        if dt == torch.bfloat16:
+            first = bits
     f32 = rec["float32"]
     log(f"[3 f32] ub float32 - bfloat16 "
         f"{f32['ub'] - rec['bfloat16']['ub']:.3e}; ms per iteration "
         f"float32 / bfloat16 "
         f"{f32['ms_per_iteration'] / rec['bfloat16']['ms_per_iteration']:.3f}"
         f" [{time.time() - t0:.1f}s]")
+
+    # ---- the bf16 solve and its device rounding, repeated ----------------
+    again, bits = solve(torch.bfloat16, rounding=True)
+    rec["repeat"] = dict(again, equal=same(first, bits))
+    log(f"[3 repeat] bf16 solve + {again['route']} rounding at Z={Z}, same "
+        f"draws: bitwise equal to the first run "
+        f"{json.dumps(rec['repeat']['equal'])}; ub {again['ub']!r} rem "
+        f"{again['rem']} (first: ub {rec['bfloat16']['ub']!r} rem "
+        f"{rec['bfloat16']['rem']})")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det, bits = solve(torch.bfloat16, rounding=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                  if "determinis" in str(w.message)})
+    rec["deterministic_mode"] = dict(det, equal=same(first, bits),
+                                     warned=ops)
+    log(f"[3 repeat] with use_deterministic_algorithms(warn_only): bitwise "
+        f"equal to the first run {json.dumps(same(first, bits))}; ub "
+        f"{det['ub']!r} rem {det['rem']}; {len(ops)} ops warned:")
+    for op in ops:
+        log(f"[3 repeat]   {op}")
+    del first, bits
     if not all(math.isfinite(rec[k]["ub"]) for k in ("bfloat16", "float32")):
         raise AssertionError(f"f32 solve check: ub not finite: {rec}")
     if (tb.spmm_route("flat", 128, 128, torch.float32) != "ring_f32"
             or f32["flat"] < nit or f32["ell"] < nit or f32["generic"]):
         raise AssertionError(f"the float32 solve did not run its products "
                              f"on ring_f32: {f32}")
+    if not all(rec["repeat"]["equal"].values()):
+        raise AssertionError(f"the bf16 solve and its rounding did not "
+                             f"repeat bit for bit: {rec['repeat']['equal']}")
     return rec
 
 
@@ -1082,6 +1150,19 @@ def main() -> int:
             note("bsr_spmm_vres", "vres", name, tb.bsr_spmm_vres, mat, V,
                  cases[name])
         del mat
+    # Kernel #2's float32 body (tma_f32) on the same S̃ at G=8.
+    mat = tb.bsr_flat_from_csr(St, block=128, group=GROUP,
+                               dtype=torch.float32, device="cuda")
+    for D in (32, 48, 64, 128):
+        V = randn(mat.nrows, D)
+        name = f"vres S~ float32 G={GROUP} D={D}"
+        log(f"[2 kernel] {name}: steps={mat.nsteps}x{mat.G}")
+        cases[name] = compare(name, mat, V, lambda: tb.bsr_spmm_vres(mat, V),
+                              lambda: tb.bsr_spmm_flat_reference(mat, V),
+                              library=True)
+        note("bsr_spmm_vres", "vres", name, tb.bsr_spmm_vres, mat, V,
+             cases[name])
+    del mat, V
     torch.cuda.empty_cache()
 
     # Block shapes without a 128x128 fast path, on the same S̃.

@@ -295,14 +295,17 @@ def shape_operand(kind: str, csr, block, dtype=torch.bfloat16, group=8,
 # (kernel, block shape, D, block dtype) for :func:`shapes`: the 128x128
 # main-path cases (the ring tile; the V-resident kernel's TMA path), the
 # float32 cases (the ring and short-block tiles in float32; the V-resident
-# kernel's own FMA body at 128x128), and the short-block tile's bf16 shapes.
+# kernel's own TMA body at 128x128, at four D), and the short-block tile's
+# bf16 shapes.
 SHAPE_CASES = (
     ("flat", 128, 48, "bfloat16"), ("flat", 128, 128, "bfloat16"),
     ("ell", 128, 48, "bfloat16"), ("vres", 128, 48, "bfloat16"),
     ("vres", 128, 128, "bfloat16"),
     ("flat", 128, 32, "float32"), ("flat", 128, 128, "float32"),
     ("ell", 128, 48, "float32"), ("ell", 128, 128, "float32"),
-    ("vres", 128, 48, "float32"), ("flat", (8, 128), 48, "float32"),
+    ("vres", 128, 32, "float32"), ("vres", 128, 48, "float32"),
+    ("vres", 128, 64, "float32"), ("vres", 128, 128, "float32"),
+    ("flat", (8, 128), 48, "float32"),
     ("ell", (8, 128), 48, "float32"), ("ell", 8, 48, "float32"),
     ("flat", 32, 48, "float32"), ("ell", 32, 48, "float32"),
     ("flat", (8, 128), 48, "bfloat16"), ("flat", (8, 128), 128, "bfloat16"),
@@ -316,8 +319,10 @@ def shapes(cases=SHAPE_CASES, cell=183, iters=20, out_path=None):
     """Time each case of ``cases`` on S̃ of ``cell`` (G=8 for the flat
     kernels) after checking it (two launches bitwise equal, within
     ``REL_TOL`` of the plain version); one JSON line per case, with the
-    body the tree under test routes it to.  Needs a CUDA device; writes the
-    record as JSON only to ``out_path``."""
+    body the tree under test routes it to, and for the 128x128 float32
+    cases the plain version's time and the library call's
+    (:func:`library_spmm`).  Needs a CUDA device; writes the record as JSON
+    only to ``out_path``."""
     from sig_sdp_mmw_torch.core.ell import build_st_csr
     from sig_sdp_mmw_torch.env.large import LargeEnv
     from sig_sdp_mmw_torch.ops.bcsr import spmm_route
@@ -347,6 +352,11 @@ def shapes(cases=SHAPE_CASES, cell=183, iters=20, out_path=None):
                "max_abs_err": res["max_abs_err"],
                **bound(mat, D), "v_gather_bytes": v_gather_bytes(mat, D)}
         rec["share"] = rec["bound_ms"] / ms
+        if (Br, Bc) == (128, 128) and dname == "float32":
+            rec["plain_ms"] = time_ms(lambda: plain(mat, V), iters)
+            lib = library_spmm(mat, V, iters)
+            rec.update(library_ms=lib["library_ms"],
+                       library_call=lib["library_call"])
         print(json.dumps(rec))
         out["cases"].append(rec)
         del mat, V

@@ -1,5 +1,4 @@
-"""What each part of the V-resident kernel's bfloat16 design buys, on the
-card.
+"""What each part of the V-resident kernel's design buys, on the card.
 
 ``bsr_spmm_vres`` runs bfloat16 blocks through a TMA ring feeding wgmma on
 persistent CTAs, with V held in L2 by evict_last hints
@@ -14,8 +13,8 @@ with one part changed at a time, each a library built with ``-D`` defines
   evict_first (blocks) and evict_last (V) hints;
 * ``l2_window`` (``VRES_L2_WINDOW``): a persisting access-policy window
   over V for the launch as well, with the set-aside raised for it and put
-  back after (the float32 path's, and the bf16 path's before the TMA
-  design);
+  back after (the bf16 path's before the TMA design, and the float32
+  path's before its TMA body);
 * ``ring_2`` (``VRES_STAGES=2``): a ring of 2 stages instead of 3 (N=128)
   or 4 (N=64);
 * ``longest_first``: the shipped kernel on the operand with its block-rows
@@ -31,11 +30,27 @@ with one part changed at a time, each a library built with ``-D`` defines
   launch rate does not touch; ``call_device``: every device entry of one
   call (the V cast, the counter's memset and the kernel).
 
+The float32 body (3xTF32 on ``wgmma``, the ``"tma_f32"`` route) is timed
+likewise (:func:`f32_parts`), as shipped and built with
+
+* ``consumers_split`` (``VRES_F32_SPLIT_WG_FROM=1000``): the two consumer
+  warpgroups split V themselves at every width, between barriers;
+* ``split_wg`` (``VRES_F32_SPLIT_WG_FROM=0``): three warps of their own
+  split V at every width, and the consumer warpgroups run apart (the
+  shipped kernel does so at N=128);
+* ``core_matrices`` (``VRES_F32_CORE_MATRICES``): V's halves in the
+  no-swizzle core matrices of ``ring_tile_f32`` instead of K-major rows of
+  128 bytes with 128-byte swizzle;
+* ``no_mma`` (``VRES_F32_NO_MMA``) and ``no_split``
+  (``VRES_F32_NO_SPLIT``): without the MMAs, or without V's split stores
+  (their results are wrong and not checked): what the rest costs.
+
 Operand: S̃ of the K=100,467 instance (cell 183) as flat block-CSR, G=8 at
-D=48 and D=128, and G=32 (every row one step of 32 slots) at D=48.  Every
-variant of the kernel sums the same products in the same order, so each
-is held bitwise equal to the shipped result; the flat
-kernel to ``REL_TOL`` of max|out|.  CUDA events, median of 3 rounds; the
+D=48 and D=128, and G=32 (every row one step of 32 slots) at D=48; in
+float32 blocks, G=8 at D=48, 96 and 128.  Every variant of the kernel that
+computes the product sums the same products in the same order, so each is
+held bitwise equal to the shipped result; the flat kernel to ``REL_TOL``
+of max|out|.  CUDA events, median of 3 rounds; the
 shipped kernel is timed first and last.  Needs a CUDA device; writes JSON
 only to ``out_path``.
 
@@ -62,6 +77,14 @@ VARIANTS = {"one_item_per_cta": ("VRES_ONE_ITEM_PER_CTA",),
             "no_cache_hints": ("VRES_NO_CACHE_HINTS",),
             "l2_window": ("VRES_L2_WINDOW",),
             "ring_2": ("VRES_STAGES=2",)}
+# The float32 body's variants; those of F32_EXACT must give the shipped
+# bits.
+F32_VARIANTS = {"consumers_split": ("VRES_F32_SPLIT_WG_FROM=1000",),
+                "split_wg": ("VRES_F32_SPLIT_WG_FROM=0",),
+                "core_matrices": ("VRES_F32_CORE_MATRICES",),
+                "no_mma": ("VRES_F32_NO_MMA",),
+                "no_split": ("VRES_F32_NO_SPLIT",)}
+F32_EXACT = ("consumers_split", "split_wg", "core_matrices")
 
 
 @contextlib.contextmanager
@@ -153,8 +176,33 @@ def parts(name, mat, D, iters, gen):
     return rec
 
 
+def f32_parts(name, mat, D, iters, gen):
+    """The float32 body as shipped and as each of ``F32_VARIANTS``
+    builds it, with the flat kernel's ``ring_f32`` on the same product."""
+    from sig_sdp_mmw_torch.ops.bcsr import bsr_spmm_flat, bsr_spmm_vres
+
+    V = torch.randn((mat.nrows, D), generator=gen, device="cuda")
+    call = lambda: bsr_spmm_vres(mat, V)   # noqa: E731
+    want = call()
+    rec = {"case": name, "D": D, "G": mat.G, **bound(mat, D)}
+    rec["shipped_ms"] = time_ms(call, iters)
+    for key, defines in F32_VARIANTS.items():
+        with vres_variant(defines):
+            if key in F32_EXACT and not torch.equal(call(), want):
+                raise AssertionError(f"{name} {key}: differs from shipped")
+            rec[f"{key}_ms"] = time_ms(call, iters)
+    check(f"{name} flat", bsr_spmm_flat(mat, V), want)
+    rec["flat_ms"] = time_ms(lambda: bsr_spmm_flat(mat, V), iters)
+    rec["shipped_again_ms"] = time_ms(call, iters)
+    rec["share"] = rec["bound_ms"] / min(rec["shipped_ms"],
+                                         rec["shipped_again_ms"])
+    print(json.dumps(rec))
+    return rec
+
+
 def main(iters=20, out_path=None, seed=0,
-         cases=((8, 48), (8, 128), (32, 48))):
+         cases=((8, 48), (8, 128), (32, 48)),
+         f32_cases=((8, 48), (8, 96), (8, 128))):
     from sig_sdp_mmw_torch.core.ell import build_st_csr
     from sig_sdp_mmw_torch.env.large import LargeEnv
     from sig_sdp_mmw_torch.ops import kernels
@@ -163,9 +211,9 @@ def main(iters=20, out_path=None, seed=0,
     if not torch.cuda.is_available():
         raise RuntimeError("bench_vres_parts measures on a CUDA device")
     # Every variant's nvcc at once.
-    with ThreadPoolExecutor(len(VARIANTS) + 1) as ex:
-        list(ex.map(kernels.bsr_spmm_vres_library,
-                    [(), *VARIANTS.values()]))
+    builds = [(), *VARIANTS.values(), *F32_VARIANTS.values()]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(kernels.bsr_spmm_vres_library, builds))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {"device": torch.cuda.get_device_name(0), "cases": []}
     S, Q, _ = LargeEnv(183, 75e-4, seed=seed).generate_state_csr()
@@ -177,6 +225,13 @@ def main(iters=20, out_path=None, seed=0,
                                          dtype=torch.bfloat16, device="cuda")
         out["cases"].append(parts(f"vres S~ 100k G={G} D={D}", flats[G], D,
                                   iters, gen))
+    flats.clear()
+    for G, D in f32_cases:
+        if G not in flats:
+            flats[G] = bsr_flat_from_csr(St, block=128, group=G,
+                                         dtype=torch.float32, device="cuda")
+        out["cases"].append(f32_parts(f"vres S~ 100k float32 G={G} D={D}",
+                                      flats[G], D, iters, gen))
     if out_path:
         with open(out_path, "w") as f:
             json.dump(out, f, indent=1)

@@ -31,6 +31,7 @@ from sig_sdp_mmw_torch.models.rounding_ell import (_greedy_assign_ell,
                                                    default_z_pad_ell)
 from sig_sdp_mmw_torch.utils.draws import TorchDraws
 from sig_sdp_mmw_torch.utils.stats import StatsObject
+from sig_sdp_mmw_torch.utils.tensors import index_sum_in_order
 
 
 def incoming_gain_scores(ell) -> torch.Tensor:
@@ -40,10 +41,12 @@ def incoming_gain_scores(ell) -> torch.Tensor:
     ``q_gain``."""
     # s_vals row k holds S[j, k] for the non-association in-neighbours j.
     base = torch.sum(ell.s_vals, dim=1)
-    contrib = torch.where(ell.q_mask, ell.q_gain, 0.0)
-    asso_in = torch.zeros(ell.Kp, dtype=ell.q_gain.dtype,
-                          device=ell.q_gain.device).index_add_(
-        0, ell.q_cols.reshape(-1).long(), contrib.reshape(-1))
+    # Many users share an association in-neighbour, so the gains are added
+    # to it in a fixed order (the JAX package's scatter-add; masked entries
+    # add zero and are left out): the rank repeats bit for bit on the card.
+    real = ell.q_mask.reshape(-1)
+    asso_in = index_sum_in_order(ell.Kp, ell.q_cols.reshape(-1)[real],
+                                 ell.q_gain.reshape(-1)[real])
     return torch.where(ell.mask, base + asso_in, 0.0)
 
 

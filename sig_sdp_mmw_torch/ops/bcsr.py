@@ -572,8 +572,8 @@ def spmm_route(kind: str, Br: int, Bc: int, dtype) -> str:
       flat and block-ELL kernels, the TMA/wgmma ring of the V-resident one);
     * ``"ring_f32"``: 128x128 float32 blocks on the flat and block-ELL
       kernels (the ring tile, three tf32 products per pair);
-    * ``"fma"``: 128x128 float32 blocks on the V-resident kernel (its
-      CUDA-core FMA body);
+    * ``"tma_f32"``: 128x128 float32 blocks on the V-resident kernel (its
+      TMA ring, three tf32 products per pair on wgmma);
     * ``"short_bf16"``, ``"short_f32"``: blocks of every other shape (the
       short-block tensor-core tile; float32 as three tf32 products).
     """
@@ -583,7 +583,7 @@ def spmm_route(kind: str, Br: int, Bc: int, dtype) -> str:
         raise ValueError(f"spmm_route: no kernel for {dtype} blocks")
     bf16 = dtype == torch.bfloat16
     if (Br, Bc) == (128, 128):
-        return "ring" if bf16 else "fma" if kind == "vres" else "ring_f32"
+        return "ring" if bf16 else "tma_f32" if kind == "vres" else "ring_f32"
     return "short_bf16" if bf16 else "short_f32"
 
 
@@ -750,12 +750,14 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     the TPU kernel's VMEM-resident V, see ``bsr_spmm_vres.cu``).  Same
     contract and plain version as :func:`bsr_spmm_flat`, any D (padded to a
     multiple of 8 and sliced back).  On CUDA, V is cast to the block dtype
-    once here (:func:`vres_operand` for bfloat16 blocks), and that copy is
-    what the kernel keeps in L2; bfloat16 blocks run on persistent CTAs that
-    take the block-rows in index order from a counter zeroed on the stream
-    before each launch.  Block shapes other than 128x128 go through the flat
-    kernel's short-block tile (bfloat16 or float32), built into this
-    kernel's library, with no residency hint (:func:`spmm_route`).
+    once here (:func:`vres_operand` for bfloat16 blocks; float32 blocks
+    read the caller's V), and that copy is what the kernel keeps in L2; both
+    dtypes run on persistent CTAs that take the block-rows in index order
+    from a counter zeroed on the stream before each launch, float32 as three
+    tf32 products per pair (``"tma_f32"``).  Block shapes other than
+    128x128 go through the flat kernel's short-block tile (bfloat16 or
+    float32), built into this kernel's library, with no residency hint
+    (:func:`spmm_route`).
     ``bsr_spmm_vres.launches`` counts kernel launches,
     ``bsr_spmm_vres.generic_launches`` those of them on a route of
     ``GENERIC_ROUTES``."""
@@ -792,10 +794,11 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
             rc = lib.bsr_spmm_vres_short_launch(
                 *ptrs, mat.Br, mat.Bc, Vb.data_ptr(), Vb.shape[1],
                 out.data_ptr(), mat.Kbr, mat.G, D8, cols, stream)
-        elif route == "fma":
-            rc = lib.bsr_spmm_vres_launch(
-                *ptrs, Vk.data_ptr(), out.data_ptr(), mat.Kbr, mat.G, D8,
-                stream)
+        elif route == "tma_f32":
+            counter = torch.empty((1,), dtype=torch.int32, device=V.device)
+            rc = lib.bsr_spmm_vres_f32_launch(
+                *ptrs, Vk.data_ptr(), counter.data_ptr(), out.data_ptr(),
+                mat.Kbr, mat.nsteps, mat.G, D8, stream)
         else:
             rc = lib.bsr_spmm_vres_short_f32_launch(
                 *ptrs, mat.Br, mat.Bc, Vk.data_ptr(), out.data_ptr(), mat.Kbr,

@@ -22,8 +22,9 @@ per pair, float32 accuracy).  The entry points, one per route of
   kernel a TMA ring feeding wgmma);
 * ``*_ring_f32_launch`` ("ring_f32": 128x128 float32 blocks; flat and
   block-ELL kernels);
-* ``bsr_spmm_vres_launch`` ("fma": the V-resident kernel's 128x128 float32
-  blocks, CUDA-core FMA);
+* ``bsr_spmm_vres_f32_launch`` ("tma_f32": the V-resident kernel's 128x128
+  float32 blocks, its TMA ring feeding three tf32 wgmma products per
+  pair);
 * ``*_short_launch`` ("short_bf16") and ``*_short_f32_launch``
   ("short_f32"): blocks of any other shape, Br and Bc at run time (the
   V-resident kernel's are the flat kernel's bodies).
@@ -133,9 +134,9 @@ def bcsr_spmm_ell_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 def bsr_spmm_vres_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib = load_kernel_library("bsr_spmm_vres", defines)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_spmm_vres_launch.restype = i32
-    lib.bsr_spmm_vres_launch.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                         vp]
+    lib.bsr_spmm_vres_f32_launch.restype = i32
+    lib.bsr_spmm_vres_f32_launch.argtypes = [vp, vp, vp, vp, vp, vp, i32,
+                                             i32, i32, i32, vp]
     lib.bsr_spmm_vres_bf16_launch.restype = i32
     lib.bsr_spmm_vres_bf16_launch.argtypes = [vp, vp, vp, vp, i32, vp, vp,
                                               i32, i32, i32, i32, vp]

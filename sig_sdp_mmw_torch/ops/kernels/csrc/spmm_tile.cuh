@@ -1,6 +1,7 @@
 // Device code shared by the block-sparse SpMM kernels of the port
 // (bsr_spmm_flat.cu: flat block-CSR; bcsr_spmm_ell.cu: block-ELL;
-// bsr_spmm_vres.cu takes the block constants and the short-block tile).
+// bsr_spmm_vres.cu takes the block constants, the short-block tile and the
+// float32 arithmetic: ring::tf32_split, the rf:: MMAs and descriptors).
 //
 // One CTA (or warp) computes one output tile
 //
@@ -564,6 +565,39 @@ struct WgmmaTf32<128> {
 #undef F8
 #undef F4
 
+// wgmma descriptor of a K-major operand in 128-byte swizzle: rows of 128
+// bytes (32 tf32 values of k), 16-byte piece p of row n stored at piece
+// p ^ (n % 8), 8-row groups 1,024 bytes apart; a k8 step moves the start
+// 32 bytes along the row.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return desc(addr, 16, 1024) | (1ull << 62);
+}
+
+// The twelve MMAs of a 32-deep stage (the header's 3xTF32): p = the sum over
+// its four k8 steps of a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, chained from zero
+// (scale-d 0 on the first), A's halves in registers (ah, al: the warp's
+// m16n8k8 fragments of each step), B's hi halves at bhi and its lo halves
+// 128*N bytes after, K-major: in no-swizzle core matrices (SW128 false:
+// the k8 step ks at 32*N*ks bytes, core matrix (n/8, (k%8)/4) at 128 * (2 *
+// (n/8) + (k%8)/4) bytes in it, ring_tile_f32's split_v) or in rows of 128
+// bytes with 128-byte swizzle (SW128 true, desc_sw128).
+template <int N, bool SW128 = false>
+__device__ __forceinline__ void stage_mma(float (&p)[N / 2],
+                                          const uint32_t (&ah)[4][4],
+                                          const uint32_t (&al)[4][4],
+                                          uint32_t bhi) {
+  constexpr uint32_t STEP = SW128 ? 32 : 32 * N, LO = 128 * N;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint32_t h = bhi + ks * STEP;
+    const uint64_t dh = SW128 ? desc_sw128(h) : desc(h, 128, 256);
+    const uint64_t dl = SW128 ? desc_sw128(h + LO) : desc(h + LO, 128, 256);
+    WgmmaTf32<N>::mma(p, al[ks], dh, ks > 0);
+    WgmmaTf32<N>::mma(p, ah[ks], dl, 1);
+    WgmmaTf32<N>::mma(p, ah[ks], dh, 1);
+  }
+}
+
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma reads or writes across it.
 template <int R>
@@ -669,15 +703,7 @@ __device__ __forceinline__ void ring_tile_f32(
     rf::fence_regs<4>(ah);
     rf::fence_regs<4>(al);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    const uint32_t bhi = bbase + (t % 2) * C::B_BUF;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t dh = rf::desc(bhi + ks * C::B_STEP, 128, 256);
-      const uint64_t dl = rf::desc(bhi + (4 + ks) * C::B_STEP, 128, 256);
-      rf::WgmmaTf32<N>::mma(p, al[ks], dh, ks > 0);
-      rf::WgmmaTf32<N>::mma(p, ah[ks], dl, 1);
-      rf::WgmmaTf32<N>::mma(p, ah[ks], dh, 1);
-    }
+    rf::stage_mma<N>(p, ah, al, bbase + (t % 2) * C::B_BUF);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (t + 1 < issued) {
       ring::cp_async_wait<S - 3>();   // slice t+1 has landed (this thread)

@@ -1,4 +1,5 @@
-"""Frozen dataclasses of tensors: the port's stand-in for registered pytrees."""
+"""Frozen dataclasses of tensors (the port's stand-in for registered
+pytrees) and small tensor helpers."""
 
 from __future__ import annotations
 
@@ -68,3 +69,31 @@ def cuda_sync(x=None) -> None:
     elif isinstance(x, TensorFields):
         if "cuda" in x.tensor_devices():
             torch.cuda.synchronize()
+
+
+def index_sum_in_order(n: int, index: torch.Tensor,
+                       src: torch.Tensor) -> torch.Tensor:
+    """``zeros(n, ...).index_add_(0, index, src)`` with every element's
+    sources added one at a time in ascending position, the order of a
+    sequential scatter-add: the sources are grouped by their rank among
+    those of the same target, and each group is one ``index_add_`` whose
+    targets are distinct.  So no element takes two adds at once and the sum
+    repeats bit for bit on the card, where ``index_add_`` into repeated
+    indices adds with atomics in varying order; on the CPU it equals the
+    sequential ``index_add_`` bit for bit."""
+    out = torch.zeros((n, *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    if index.numel() == 0:
+        return out
+    order = torch.argsort(index.long(), stable=True)
+    tgt = index.long()[order]
+    count = torch.bincount(tgt, minlength=n)
+    rank = (torch.arange(tgt.numel(), device=tgt.device)
+            - (torch.cumsum(count, 0) - count)[tgt])
+    by_rank = torch.argsort(rank, stable=True)
+    pos = 0
+    for size in torch.bincount(rank).tolist():
+        group = by_rank[pos:pos + size]
+        pos += size
+        out.index_add_(0, tgt[group], src[order[group]])
+    return out

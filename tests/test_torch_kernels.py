@@ -148,9 +148,10 @@ def test_ell_kernel_matches_reference_on_cuda(D, brow, dt):
 def test_vres_kernel_matches_reference_on_cuda(G, D, dt):
     """The V-resident flat kernel vs the flat plain version on the card, at
     groups from 1 to 32 (G=32 pads every row to 32 slots) and D from 1 to
-    200 (the bf16 kernel's tile widths 16, 32, 64 and 128; D=200 as two
-    128-column tiles, the second part-full), to 1e-5 of max|out|; two
-    launches bitwise equal."""
+    200 (the bf16 kernel's tile widths 16, 32, 64 and 128, the float32
+    one's 16, 32, 48, 64, 96 and 128; D=200 as two 128-column tiles, the
+    second part-full), to 1e-5 of max|out|; two launches bitwise equal,
+    both counted on the dtype's 128x128 route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     S, Q, _ = generate_large_state_csr(10, 75e-4, seed=2)
@@ -158,10 +159,14 @@ def test_vres_kernel_matches_reference_on_cuda(G, D, dt):
                                dtype=getattr(torch, dt), device="cuda")
     V = torch.randn((mat.nrows, D), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(0))
-    n0 = tb.bsr_spmm_vres.launches
+    n0, g0 = tb.bsr_spmm_vres.launches, tb.bsr_spmm_vres.generic_launches
     got = tb.bsr_spmm_vres(mat, V)
     assert torch.equal(got, tb.bsr_spmm_vres(mat, V))
     assert tb.bsr_spmm_vres.launches == n0 + 2 and got.shape == (mat.nrows, D)
+    # Both launches on the 128x128 route of their dtype, none generic.
+    assert tb.spmm_route("vres", 128, 128, mat.blocks.dtype) == (
+        "tma_f32" if dt == "float32" else "ring")
+    assert tb.bsr_spmm_vres.generic_launches == g0
     want = tb.bsr_spmm_flat_reference(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
@@ -482,15 +487,16 @@ ROUTE_SHAPES = [(128, 128), *GENERIC_SHAPES]
 def test_spmm_route_names_one_body_per_shape(kind, dt):
     """spmm_route: 128x128 takes the ring tile, in bfloat16 on every kernel
     and in float32 on the flat and block-ELL kernels (the V-resident
-    kernel keeps its FMA body); every other shape the short-block tile, in
-    either dtype.  Only the short-block routes count as generic launches;
-    other kinds and dtypes are refused."""
+    kernel takes its TMA ring with three tf32 products per pair,
+    "tma_f32"); every other shape the short-block tile, in either dtype.
+    Only the short-block routes count as generic launches; other kinds and
+    dtypes are refused."""
     dtype = getattr(torch, dt)
     for block in ROUTE_SHAPES:
         route = tb.spmm_route(kind, *block, dtype)
         if block == (128, 128):
             want = ("ring" if dt == "bfloat16" else
-                    "fma" if kind == "vres" else "ring_f32")
+                    "tma_f32" if kind == "vres" else "ring_f32")
         else:
             want = "short_bf16" if dt == "bfloat16" else "short_f32"
         assert route == want, (kind, block, dt)
@@ -574,15 +580,16 @@ def test_single_tf32_product_misses_the_kernel_tolerance(seed, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["flat", "ell"])
+@pytest.mark.parametrize("kind", ["flat", "ell", "vres"])
 @pytest.mark.parametrize("block", [128, (8, 128), 8],
                          ids=["128x128", "8x128", "8x8"])
 @pytest.mark.parametrize("D", [8, 48, 128])
 def test_float32_tiles_keep_float32_accuracy_on_cuda(D, block, kind):
     """Float32 blocks and V spread over eight decades (1e-6..1e2, random
-    signs) through the float32 ring and short-block tiles: within 1e-6 of
-    max|out| of the float64 product, as the CPU model of the split is, and
-    within 1e-5 of the plain float32 version."""
+    signs) through the float32 ring and short-block tiles and the
+    V-resident kernel's TMA body: within 1e-6 of max|out| of the float64
+    product, as the CPU model of the split is, and within 1e-5 of the plain
+    float32 version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(9)
@@ -593,7 +600,8 @@ def test_float32_tiles_keep_float32_accuracy_on_cuda(D, block, kind):
         kernel, plain = tb.bcsr_spmm, tb.bcsr_spmm_reference
     else:
         mat = tb.bsr_flat_from_csr(M, block=block, group=8, device="cuda")
-        kernel, plain = tb.bsr_spmm_flat, tb.bsr_spmm_flat_reference
+        kernel = tb.bsr_spmm_vres if kind == "vres" else tb.bsr_spmm_flat
+        plain = tb.bsr_spmm_flat_reference
     V = torch.from_numpy((rng.choice([-1.0, 1.0], (mat.nrows, D)) * 10
                           ** rng.uniform(-6, 2, (mat.nrows, D))
                           ).astype(np.float32)).to("cuda")
