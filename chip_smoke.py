@@ -148,6 +148,26 @@
    a device trace of (b)'s bf16 solve: the device time of the kernels and
    of the copies (gloo moves the gathered rows through the host), the
    host time in the all-gathers and MB gathered per iteration.
+9. The last modules ported (sig_sdp_mmw_torch/ops/bcsr.py's block pair
+   and block Grams, experiments/plot_results.py and
+   experiments/oracle_z_report.py): (a) bcsr_pair_from_state on phase 6's
+   instance (LargeEnv cell 40, K=4,800, its CSR state made anew) at
+   128x128 and 32x32 blocks, float32 and bf16: S̃·V and S̃ᵀ·V (D=48)
+   through kernel #3, each held to its plain version (1e-5 of max|out|)
+   and to the ELL product of core.ell on the same state (rtol 1e-4, atol
+   1e-5; the ELL values and V rounded to the block dtype, as the kernel
+   reads them), each launch counted on the route spmm_route names (ring,
+   ring_f32, short_bf16, short_f32), kernel #3 launched more than 0 times
+   (its count is block_pair_launches in the kernels line); (b)
+   bcsr_block_gram and bcsr_block_gram_accum (in place) on the 32x32
+   pattern of (a)'s S̃ with float32 X (D=48) on the card, against a
+   float64 einsum on the CPU to 1e-5 of the largest entry; (c)
+   plot_results on phase 7's sim_all_bler and sim_mmw_oracle_z
+   directories and the matrix-sparsity figure at cell 5, every expected
+   file non-empty (where matplotlib is not installed, as on the card's
+   host, no figure can be drawn: the metric files the figures read must
+   parse instead, every row finite); (d) oracle_z_report on phase 7's one-seed oracle run:
+   one seed, its oracle Z the one phase 7 printed.
 Each phase prints its seconds ("[time] phase N").
 
 Every kernel counts its launches; each path's counts are set to 0 just
@@ -164,6 +184,7 @@ true, "device": {...}}``.
 
 import contextlib
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -1008,6 +1029,153 @@ def sharded_phase(tb, tmp: str) -> dict:
     return {"launches": launches, "f32": f32}
 
 
+def block_pair_phase(tb, journal_dir: str, oracle_Z: int) -> dict:
+    """Phase 9, the last modules ported: (a) bcsr_pair_from_state on the
+    mid-K instance at 128x128 and 32x32 blocks in float32 and bf16, S̃·V
+    and S̃ᵀ·V (D=48) through kernel #3 against its plain version and the
+    ELL product, on the route spmm_route names; (b) the block Grams against
+    a float64 CPU einsum; (c) plot_results on phase 7's output; (d)
+    oracle_z_report on phase 7's one-seed oracle run."""
+    import numpy as np
+    import torch
+
+    from sig_sdp_mmw_torch.core.ell import ell_from_scipy
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.experiments import oracle_z_report, plot_results
+    from sig_sdp_mmw_torch.experiments.bench_flat_spmm import REL_TOL, check
+    from sig_sdp_mmw_torch.ops.ell import ell_spmm
+
+    out = {}
+    # (a) the pair of the mid-K instance through kernel #3.
+    S, Q, h = LargeEnv(MIDK_CELL, RHO, seed=SEED).generate_state_csr()
+    K = S.shape[0]
+    ell = ell_from_scipy(S, Q, h, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    launches, routes = 0, {}
+    for block in (128, MIDK_BLOCK):
+        for dt in (torch.float32, torch.bfloat16):
+            s_b, st_b = tb.bcsr_pair_from_state(S, Q, block=block, dtype=dt,
+                                                device="cuda")
+            route = tb.spmm_route("ell", block, block, dt)
+            want = ("ring" if dt == torch.bfloat16 else "ring_f32") \
+                if block == 128 else \
+                ("short_bf16" if dt == torch.bfloat16 else "short_f32")
+            if route != want:
+                raise AssertionError(f"pair {block} {dt}: route {route}, "
+                                     f"want {want}")
+            V = torch.randn((s_b.nrows, SHARD_D), generator=gen,
+                            device="cuda")
+            # The ELL operands in the block dtype, as the kernel reads them.
+            Vr = V.to(dt).float()
+            for name, mat, cols, vals in (
+                    ("S~", s_b, ell.s_cols, ell.s_vals),
+                    ("S~T", st_b, ell.st_cols, ell.st_vals)):
+                case = f"pair {name} {block}x{block} {dt} D={SHARD_D}"
+                n0, g0 = tb.bcsr_spmm.launches, tb.bcsr_spmm.generic_launches
+                got = tb.bcsr_spmm(mat, V)
+                if (tb.bcsr_spmm.launches != n0 + 1
+                        or tb.bcsr_spmm.generic_launches
+                        != g0 + (route in tb.GENERIC_ROUTES)):
+                    raise AssertionError(f"{case}: not counted on {route}")
+                res = check(case, got, tb.bcsr_spmm_reference(mat, V))
+                want_ell = ell_spmm(cols.long(), vals.to(dt).float(),
+                                    Vr[:ell.Kp])[:K]
+                err = float((got[:K] - want_ell).abs().max())
+                torch.testing.assert_close(got[:K], want_ell, rtol=1e-4,
+                                           atol=1e-5)
+                routes[case] = dict(route=route,
+                                    max_abs_err=res["max_abs_err"],
+                                    tol=res["tol"], ell_max_abs_err=err)
+                log(f"[9 pair] {case}: route {route}, max_abs_err "
+                    f"{res['max_abs_err']:.3e} (tol {res['tol']:.3e}), "
+                    f"vs ELL {err:.3e}")
+            launches = tb.bcsr_spmm.launches
+            del s_b, st_b, V, Vr
+    if launches == 0:
+        raise AssertionError("the block pair launched kernel #3 no time")
+    out["pair"] = dict(K=K, launches=launches, cases=routes)
+
+    # (b) the block Grams at 32x32 blocks against float64 on the CPU.
+    s_b, _ = tb.bcsr_pair_from_state(S, Q, block=MIDK_BLOCK, device="cuda")
+    bcols = s_b.bcols.long()
+    Xb = torch.randn((s_b.Kb, MIDK_BLOCK, SHARD_D), generator=gen,
+                     device="cuda")
+    acc0 = torch.randn((s_b.Kb, bcols.shape[1], MIDK_BLOCK, MIDK_BLOCK),
+                       generator=gen, device="cuda")
+    X64, c64 = Xb.double().cpu(), bcols.cpu()
+    G64 = torch.einsum("kid,ksjd->ksij", X64, X64[c64])
+    acc = acc0.clone()
+    got = {"block_gram": tb.bcsr_block_gram(bcols, Xb),
+           "block_gram_accum": tb.bcsr_block_gram_accum(bcols, Xb, acc,
+                                                        0.37)}
+    if got["block_gram_accum"] is not acc:
+        raise AssertionError("bcsr_block_gram_accum did not update in place")
+    for name, ref in (("block_gram", G64),
+                      ("block_gram_accum", acc0.double().cpu() + 0.37 * G64)):
+        err = float((got[name].double().cpu() - ref).abs().max())
+        tol = REL_TOL * float(ref.abs().max())
+        log(f"[9 gram] {name} {tuple(ref.shape)}: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}) against float64")
+        if not err <= tol:
+            raise AssertionError(f"{name}: {err:.3e} > {tol:.3e}")
+        out[name] = dict(shape=list(ref.shape), max_abs_err=err, tol=tol)
+    del s_b, Xb, acc0, acc, got
+
+    # (c) the figures of phase 7's output, and the spy plot at cell 5.
+    # Without matplotlib (the card's host has none) no figure can be
+    # drawn: the metric files the figures read must then parse, every row
+    # finite.
+    fig_dir = os.path.join(journal_dir, "figures")
+    subs = {"bler": 5, "oracle_z": 3}    # metric files phase 7 wrote
+    if importlib.util.find_spec("matplotlib") is None:
+        rows = {}
+        for sub, n in subs.items():
+            data = plot_results._read_metric_files(
+                os.path.join(journal_dir, sub))
+            rows[sub] = {k: len(v) for k, v in data.items()}
+            if len(data) != n or not all(
+                    v and all(np.all(np.isfinite(r)) for r in v)
+                    for v in data.values()):
+                raise AssertionError(f"plot_results' inputs in {sub}: "
+                                     f"{rows[sub]}")
+        log(f"[9 plot] matplotlib is not installed here: no figure drawn; "
+            f"metric files read, rows {json.dumps(rows)}")
+        out["figures"] = {"drawn": False, "metric_rows": rows}
+    else:
+        expected = []
+        for sub in subs:
+            d = os.path.join(fig_dir, sub)
+            plot_results.main([os.path.join(journal_dir, sub), "--out", d])
+            expected += [os.path.join(d, f) for f in ("bler_avg_max.pdf",
+                                                      "bler_cdf.pdf")]
+        plot_results.plot_matrix_sparsity(fig_dir, cells=(5,))
+        expected.append(os.path.join(fig_dir, "matrix_sparsity.pdf"))
+        sizes = {os.path.relpath(f, fig_dir): (os.path.getsize(f)
+                                               if os.path.exists(f) else 0)
+                 for f in expected}
+        log(f"[9 plot] {json.dumps(sizes)}")
+        if not all(sizes.values()):
+            raise AssertionError(f"plot_results: missing or empty {sizes}")
+        out["figures"] = {"drawn": True, "sizes": sizes}
+    os.makedirs(fig_dir, exist_ok=True)
+
+    # (d) the oracle report of phase 7's one seed.
+    rep = oracle_z_report.main([os.path.join(journal_dir, "oracle_z"),
+                                "--cell", "10", "--out",
+                                os.path.join(fig_dir, "ORACLE_Z.md")])
+    log(f"[9 report] oracle Z {rep['Z']} (phase 7: {oracle_Z}), MMW "
+        f"feasible {rep['mmw_feasible']}, rand feasible "
+        f"{rep['rand_feasible']}")
+    if rep["n"] != 1 or rep["Z"] != [oracle_Z]:
+        raise AssertionError(f"oracle_z_report: {rep['Z']} against "
+                             f"phase 7's {oracle_Z}")
+    out["report"] = {k: rep[k] for k in ("n", "Z", "oracle_feasible",
+                                         "mmw_feasible", "rand_feasible")}
+    if not np.isfinite(rep["mmw_bler_mean"]):
+        raise AssertionError("oracle_z_report: BLER not finite")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1439,17 +1607,24 @@ def main() -> int:
     midk = midk_phase(tb, e2e_main)
     log(f"[time] phase 6 {time.time() - t_phase:.1f}s")
 
-    # ---- 7. the journal comparison slice -----------------------------------
-    t_phase = time.time()
-    with tempfile.TemporaryDirectory() as tmp:
-        journal = journal_phase(tb, tmp)
-    log(f"[time] phase 7 {time.time() - t_phase:.1f}s")
+    with tempfile.TemporaryDirectory() as journal_dir:
+        # ---- 7. the journal comparison slice -------------------------------
+        t_phase = time.time()
+        journal = journal_phase(tb, journal_dir)
+        log(f"[time] phase 7 {time.time() - t_phase:.1f}s")
 
-    # ---- 8. the sharded path -----------------------------------------------
-    t_phase = time.time()
-    with tempfile.TemporaryDirectory() as tmp:
-        sharded = sharded_phase(tb, tmp)
-    log(f"[time] phase 8 {time.time() - t_phase:.1f}s")
+        # ---- 8. the sharded path -------------------------------------------
+        t_phase = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            sharded = sharded_phase(tb, tmp)
+        log(f"[time] phase 8 {time.time() - t_phase:.1f}s")
+
+        # ---- 9. block pair, block Grams, figures, the oracle report --------
+        t_phase = time.time()
+        reset_launches(tb)
+        pair = block_pair_phase(tb, journal_dir,
+                                journal["sim_mmw_oracle_z"]["Z"])
+        log(f"[time] phase 9 {time.time() - t_phase:.1f}s")
     log(f"[done] {time.time() - t_start:.1f}s")
 
     def per_rank(name):
@@ -1470,8 +1645,11 @@ def main() -> int:
                 "f32_cases": f32[name] + (sharded["f32"]
                                           if name == "bcsr_spmm_ell" else []),
                 "sharded_launches_per_rank": per_rank(
-                    "bcsr_spmm" if name == "bcsr_spmm_ell" else name)}
+                    "bcsr_spmm" if name == "bcsr_spmm_ell" else name),
+                **({"block_pair_launches": pair["pair"]["launches"]}
+                   if name == "bcsr_spmm_ell" else {})}
 
+    log(f"[9 summary] {json.dumps(pair)}")
     log(f"[7 summary] {json.dumps(journal)}")
     log(f"[6 summary] {json.dumps(midk)}")
     log(f"[3 summary] {json.dumps(e2e_rec)}")

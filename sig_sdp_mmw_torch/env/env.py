@@ -87,6 +87,22 @@ def ap_grid(p: EnvParams, dtype=torch.float32, device="cpu") -> torch.Tensor:
                         dtype=dtype, device=device)
 
 
+def sample_sta_locs(generator: torch.Generator, p: EnvParams,
+                    device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """[n_sta, 2] user positions, uniform on the grid (the counterpart of the
+    JAX function, which takes a key; ``generator`` lies on ``device``)."""
+    u = torch.rand((p.n_sta, 2), generator=generator, dtype=dtype,
+                   device=device)
+    return u * p.grid_edge
+
+
+def sample_sta_dirs(generator: torch.Generator, n: int, device="cpu",
+                    dtype=torch.float32) -> torch.Tensor:
+    """[n, 2] unit heading vectors from a Gaussian draw."""
+    d = torch.randn((n, 2), generator=generator, dtype=dtype, device=device)
+    return d / torch.linalg.norm(d, dim=1, keepdim=True)
+
+
 def rxpr_unthresholded(sta_locs: torch.Tensor, aps: torch.Tensor,
                        p: EnvParams) -> torch.Tensor:
     """[K, A] received-power-to-noise ratios under per-user power control:

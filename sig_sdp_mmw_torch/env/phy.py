@@ -15,6 +15,7 @@ import math
 import torch
 
 NOISE_FLOOR_DBM = -94.0
+C_LIGHT = 299792458.0
 
 _SQRT2 = math.sqrt(2.0)
 

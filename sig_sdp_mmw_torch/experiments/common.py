@@ -45,10 +45,11 @@ def setup(args):
     np.set_printoptions(threshold=10, linewidth=1000)
 
 
-def make_log(script_file: str, out: Optional[str] = None):
+def make_log(script_file: str, out: Optional[str] = None,
+             append: bool = False):
     from sig_sdp_mmw_torch.utils.logging import (CsvWriter,
                                                  get_log_path_for_sim_script)
 
     path = out or get_log_path_for_sim_script(script_file)
     print(path)
-    return CsvWriter(path=path), path
+    return CsvWriter(path=path, append=append), path

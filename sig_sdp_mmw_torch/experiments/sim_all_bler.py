@@ -6,7 +6,8 @@ binary search + MMW finds Z_fin, every method is rounded at that same Z, and
 the full per-user BLER vector is logged per method under the reference's
 metric names (``mmw-<cell>-<rho*1e4>``, ``rand-``, ``ladmm-``, ``mgain-``,
 ``masso-``; values = [Z] + bler).  Completed (cell, seed) items are recorded
-in the output directory's ``checkpoint.jsonl`` and skipped on a rerun.  Each
+in the output directory's ``checkpoint.jsonl`` and skipped on a rerun, which
+appends to the metric files (the JAX script truncates them).  Each
 instance also prints one ``[sim_all_bler]`` JSON line: every method's Z,
 remainder, seconds (solve and rounding, host clock after the device is done),
 share of users with BLER above 1e-5, and whether the independent checker
@@ -66,7 +67,7 @@ def compare_at_z(e, st, Z: int, seed: int) -> dict:
 def main(argv=None):
     args = experiment_args(__doc__, repeat=100).parse_args(argv)
     setup(args)
-    log, path = make_log(__file__, args.out)
+    log, path = make_log(__file__, args.out, append=True)
 
     from sig_sdp_mmw_torch.env import WirelessEnv
     from sig_sdp_mmw_torch.models import (MMW, BinarySearchRelaxation,

@@ -12,7 +12,8 @@ validation.  For each (cell, seed):
 3. the random baseline is rounded at that Z (``rand-<cell>-<rho*1e4>``).
 
 Each CSV row holds ``[Z, rem] + per-user BLER``.  Completed items are
-checkpointed as in ``sim_all_bler``.  Each instance also prints one
+checkpointed as in ``sim_all_bler`` (a rerun with the same ``--out`` skips
+them and appends).  Each instance also prints one
 ``[sim_mmw_oracle_z]`` JSON line with the oracle's Z and every method's
 remainder and seconds.  Runs on ``--device`` (default cuda).
 
@@ -33,7 +34,7 @@ def main(argv=None):
     p.add_argument("--mmw_nit", type=int, default=150)
     args = p.parse_args(argv)
     setup(args)
-    log, path = make_log(__file__, args.out)
+    log, path = make_log(__file__, args.out, append=True)
 
     from sig_sdp_mmw_torch.env import WirelessEnv
     from sig_sdp_mmw_torch.models import (MMW, ADMMSDPSolver,

@@ -15,3 +15,8 @@ from sig_sdp_mmw_torch.models.baselines import RandSDPSolver, SpectralSDPSolver 
 from sig_sdp_mmw_torch.models.admm import ADMMSDPSolver  # noqa: F401
 from sig_sdp_mmw_torch.models.lrp import LRPSolver  # noqa: F401
 from sig_sdp_mmw_torch.models.heuristics import MAX_GAIN, MAX_ASSO, MAX_RAND  # noqa: F401
+from sig_sdp_mmw_torch.models.heuristics_ell import (  # noqa: F401
+    MAX_ASSO_ELL,
+    MAX_GAIN_ELL,
+    MAX_RAND_ELL,
+)

@@ -5,4 +5,5 @@ from sig_sdp_mmw_torch.native.builder import (  # noqa: F401
     build_state_csr_native,
     greedy_round_native,
     native_available,
+    native_num_threads,
 )

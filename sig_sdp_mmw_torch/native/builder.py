@@ -93,12 +93,20 @@ def _load() -> Optional[ctypes.CDLL]:
         pf32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         lib.sig_bcsr_sym_weights.restype = None
         lib.sig_bcsr_sym_weights.argtypes = [i64, pi64, pi64, pf32]
+        lib.sig_native_num_threads.restype = ctypes.c_int
+        lib.sig_native_num_threads.argtypes = []
         _lib = lib
         return _lib
 
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def native_num_threads() -> int:
+    """The library's OpenMP thread count (0 when it did not build)."""
+    lib = _load()
+    return int(lib.sig_native_num_threads()) if lib is not None else 0
 
 
 def build_state_csr_native(sta_locs: np.ndarray, params, cutoff: float

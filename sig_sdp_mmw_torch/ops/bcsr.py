@@ -8,8 +8,10 @@ dense 128x128 blocks of which only a few percent of entries are nonzero:
   count; its product is the hand-written CUDA kernel
   ``ops/kernels/csrc/bcsr_spmm_ell.cu`` behind :func:`bcsr_spmm`, with
   :func:`bcsr_spmm_reference` as its plain version; the transpose product
-  and the pattern Gram are plain torch (:func:`bcsr_spmm_transpose`,
-  :func:`bcsr_edge_gram_accum`);
+  and the pattern Grams are plain torch (:func:`bcsr_spmm_transpose`,
+  :func:`bcsr_edge_gram_accum`, :func:`bcsr_block_gram`,
+  :func:`bcsr_block_gram_accum`); :func:`bcsr_pair_from_state` builds S
+  tilde and its transpose;
 * :class:`FlatBsr` — flat block-CSR, only real blocks, grouped ``G`` per
   step; its products are the CUDA kernels ``bsr_spmm_flat.cu`` behind
   :func:`bsr_spmm_flat` and ``bsr_spmm_vres.cu`` (V resident in L2) behind
@@ -368,6 +370,29 @@ def bcsr_edge_gram_accum(bcols: torch.Tensor, Xr: torch.Tensor,
     for s in range(bcols.shape[1]):
         G = torch.bmm(Xr, Xc[bcols[:, s]].transpose(1, 2)).to(acc.dtype)
         acc.index_add_(0, g_dst[s], scale * G.reshape(-1)[g_src[s]])
+    return acc
+
+
+def bcsr_block_gram(bcols: torch.Tensor, Xb: torch.Tensor) -> torch.Tensor:
+    """Pattern-restricted block Gram: for every (block-row k, slot s),
+    ``Xb[k] @ Xb[bcols[k, s]]^T`` -> [Kb, maxblk, B, B], one batched product
+    per slot in ``Xb``'s dtype (square-block layout only)."""
+    Kb, B, _ = Xb.shape
+    out = Xb.new_zeros((Kb, bcols.shape[1], B, B))
+    for s in range(bcols.shape[1]):
+        out[:, s] = torch.bmm(Xb, Xb[bcols[:, s]].transpose(1, 2))
+    return out
+
+
+def bcsr_block_gram_accum(bcols: torch.Tensor, Xb: torch.Tensor,
+                          acc: torch.Tensor, scale) -> torch.Tensor:
+    """``acc[k, s] += scale * Xb[k] @ Xb[bcols[k, s]]^T`` slot by slot, in
+    ``acc``'s dtype; updates ``acc`` in place and returns it.  (Square-block
+    layout; the solvers use :func:`bcsr_edge_gram_accum` or the flat Gram of
+    ``models/mmw_ell.py``.)"""
+    X = Xb.to(acc.dtype)
+    for s in range(bcols.shape[1]):
+        acc[:, s] += scale * torch.bmm(X, X[bcols[:, s]].transpose(1, 2))
     return acc
 
 
@@ -811,6 +836,24 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
 
 
 bsr_spmm_vres.launches = bsr_spmm_vres.generic_launches = 0
+
+
+def bcsr_pair_from_state(S_csr, Q_csr, block: int = 128,
+                         dtype=torch.float32, device="cuda"
+                         ) -> Tuple[BlockEll, BlockEll]:
+    """(S tilde, S tilde^T) as BlockEll matrices, rows padded to a multiple
+    of ``block``: built on the host as :func:`bcsr_from_csr` builds, then
+    moved to ``device`` once.  Both feed :func:`bcsr_spmm` unchanged."""
+    from sig_sdp_mmw_torch.core.ell import build_st_csr
+
+    St = build_st_csr(S_csr, Q_csr)
+    K = St.shape[0]
+    nr = ((K + block - 1) // block) * block
+    StT = St.transpose().tocsr()
+    return (bcsr_from_csr(St, block=block, pad_rows_to=nr, dtype=dtype,
+                          device=device),
+            bcsr_from_csr(StT, block=block, pad_rows_to=nr, dtype=dtype,
+                          device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,13 @@ from sig_sdp_mmw_torch.utils.stats import get_current_time_str
 
 
 class CsvWriter:
-    def __init__(self, path: Optional[str] = None):
+    """``append=True`` opens each metric file for appending, so a sweep that
+    resumes through :class:`~sig_sdp_mmw_torch.utils.checkpoint.SweepCheckpoint`
+    keeps the rows of its earlier runs (the JAX writer truncates them)."""
+
+    def __init__(self, path: Optional[str] = None, append: bool = False):
         self.path = path
+        self.mode = "a" if append else "w"
         if self.path is not None:
             os.makedirs(self.path, exist_ok=True)
         self.files: Dict[str, object] = {}
@@ -25,7 +30,7 @@ class CsvWriter:
 
     def _writer(self, data_name: str):
         if data_name not in self.files:
-            f = open(os.path.join(self.path, data_name), "w", newline="")
+            f = open(os.path.join(self.path, data_name), self.mode, newline="")
             self.files[data_name] = f
             self.writers[data_name] = csv.writer(f)
         return self.writers[data_name], self.files[data_name]
@@ -63,3 +68,9 @@ def get_log_path_for_sim_script(sim_script_path: str) -> str:
 
 def get_file_name_for_sim_script(file: str) -> str:
     return os.path.splitext(os.path.basename(file))[0]
+
+
+# Reference-compatible aliases.
+CSV_WRITER_OBJECT = CsvWriter
+GET_LOG_PATH_FOR_SIM_SCRIPT = get_log_path_for_sim_script
+GET_FILE_NAME_FOR_SIM_SCRIPT = get_file_name_for_sim_script

@@ -1,7 +1,9 @@
 """The ported slice end to end on the CPU: experiments/e2e_large.main at
 cell=10 (K=300) against the JAX package's MMWEll search on the same state,
-and the port's independence from JAX."""
+the port's independence from JAX, and its coverage of the JAX package's
+modules and names."""
 
+import ast
 import json
 import os
 import re
@@ -122,7 +124,13 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.parallel.mesh,"
             " sig_sdp_mmw_torch.parallel.distributed,"
             " sig_sdp_mmw_torch.utils.profiling, sig_sdp_mmw_torch.entry,"
-            " sig_sdp_mmw_torch.experiments.sharded_large; "
+            " sig_sdp_mmw_torch.experiments.sharded_large,"
+            " sig_sdp_mmw_torch.experiments.plot_results,"
+            " sig_sdp_mmw_torch.experiments.oracle_z_report,"
+            " sig_sdp_mmw_torch.experiments.gap_c15_sweep,"
+            " sig_sdp_mmw_torch.utils.stats, sig_sdp_mmw_torch.utils.logging,"
+            " sig_sdp_mmw_torch.native.builder, sig_sdp_mmw_torch.env.env,"
+            " sig_sdp_mmw_torch.env.phy; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
@@ -154,3 +162,58 @@ def test_slice_speculative_search_on_generic_blocks(port_run):
     assert rec["n_waves"] == len(rec["wave_rows"]) >= 1
     assert rec["n_probes"] == len(rec["probe_Z"]) == sum(
         r["candidates"] for r in rec["wave_rows"])
+
+
+JAX_PKG = os.path.join(REPO, "sig_sdp_mmw_tpu")
+PORT_PKG = os.path.join(REPO, "sig_sdp_mmw_torch")
+# The three functions that reach pl.pallas_call, and the CUDA kernel
+# wrappers that take their place in the port.
+PALLAS_PORTS = {"bcsr_spmm_pallas": "bcsr_spmm",
+                "bsr_spmm_pallas_flat": "bsr_spmm_flat",
+                "bsr_spmm_pallas_vres": "bsr_spmm_vres"}
+JAX_MODULES = sorted(
+    os.path.relpath(os.path.join(root, n), JAX_PKG)
+    for root, _, names in os.walk(JAX_PKG) for n in names
+    if n.endswith(".py"))
+
+
+def _public_names(path: str, pkg: str) -> set:
+    """Public top-level names of a module: functions, classes and assigned
+    names, and in a package's ``__init__.py`` the names it re-exports from
+    its own package."""
+    tree = ast.parse(open(path).read())
+    init = os.path.basename(path) == "__init__.py"
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out |= {n.id for t in targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        elif (init and isinstance(node, ast.ImportFrom) and node.module
+              and node.module.startswith(pkg)):
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_port_covers_every_jax_module():
+    assert len(JAX_MODULES) > 40
+    missing = [m for m in JAX_MODULES
+               if not os.path.exists(os.path.join(PORT_PKG, m))]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_port_has_every_public_name(module):
+    """Every public top-level name of a JAX module has a counterpart of the
+    same name in the same module of the port; the Pallas functions have
+    their CUDA wrappers instead."""
+    want = _public_names(os.path.join(JAX_PKG, module), "sig_sdp_mmw_tpu")
+    have = _public_names(os.path.join(PORT_PKG, module), "sig_sdp_mmw_torch")
+    missing = {PALLAS_PORTS.get(n, n) for n in want} - have
+    assert not missing, sorted(missing)
+    if module == os.path.join("ops", "bcsr.py"):
+        assert set(PALLAS_PORTS) <= want
