@@ -168,6 +168,20 @@
    host, no figure can be drawn: the metric files the figures read must
    parse instead, every row finite); (d) oracle_z_report on phase 7's one-seed oracle run:
    one seed, its oracle Z the one phase 7 printed.
+10. The 100k quality studies (experiments/conv_probe.py, bler_tail_fix.py,
+   bler_tail_sweep.py) at a short depth: (a) conv_probe at K=100,467 (its
+   state made anew), one segment of 125 iterations on 128x128 bf16 blocks
+   with the flat twins, its ub within 0.03 of CONV_PROBE_100K.json's
+   0.2477 there; (b) bler_tail_fix's case without a margin and (c)
+   bler_tail_sweep at ratio 0.1, both at cell 24 (K=1,728), each with rem
+   0 and verified; every study's products on the routes its blocks name
+   (ring for bf16, ring_f32 for the sweep's float32 blocks), kernels #1
+   and #3 launched more than 0 times each (their counts are
+   studies_launches in the kernels line); (d) the oracle study
+   (sim_mmw_oracle_z --geometry) on the JAX package's users of seeds 0
+   and 1 (tests/fixtures/oracle_z_cell10_geometry.npz), one process a
+   seed beside (a)-(c): the oracle feasible and its Z within 1 of the JAX
+   package's on the CPU (ORACLE_GEOMETRY_Z).
 Each phase prints its seconds ("[time] phase N").
 
 Every kernel counts its launches; each path's counts are set to 0 just
@@ -214,6 +228,18 @@ DENSE_Z_REF = 11
 # probe at 9 ends at remainder 0 and the search at 9.
 ORACLE_Z_REF = 10
 ORACLE_NIT = 500
+# Phase 10 (d): the JAX package's oracle Z on its own users of seeds 0 and 1
+# (tests/fixtures/oracle_z_cell10_geometry.npz, made by tests/
+# torch_jax_geometry.py), from its study sim_mmw_oracle_z --platform cpu
+# (float32, oracle nit 500) on the CPU.
+GEOMETRY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "oracle_z_cell10_geometry.npz")
+ORACLE_GEOMETRY_Z = [13, 11]
+# Phase 10: the tools' small cell (K=1,728) for bler_tail_fix and
+# bler_tail_sweep, and CONV_PROBE_100K.json's bf16 ub after the first
+# segment of 125 iterations.
+STUDY_CELL = 24
+CONV_UB125_REF = 0.2477
 JOURNAL_CELL, JOURNAL_K = 15, 675     # the journal's largest cell
 DENSE_NIT = 150
 E2E_Z_REF = 16        # E2E_LARGE.json (the JAX tool on cell 183)
@@ -244,6 +270,7 @@ def reset_launches(tb) -> None:
     """Set every kernel wrapper's launch counts to 0."""
     for fn in (tb.bsr_spmm_flat, tb.bcsr_spmm, tb.bsr_spmm_vres):
         fn.launches = fn.generic_launches = 0
+        fn.route_launches = {}
 
 
 def compare(name, mat, V, kernel, plain, iters=20, library=False):
@@ -1176,6 +1203,126 @@ def block_pair_phase(tb, journal_dir: str, oracle_Z: int) -> dict:
     return out
 
 
+def studies_phase(tb, tmp: str) -> dict:
+    """Phase 10: the three 100k quality studies at a short depth,
+    each with its kernel launches by route, and the oracle study on two
+    seeds of the JAX package's users (module docstring, phase 10)."""
+    rec = {}
+    # (d) starts first: one process a seed, on the card beside (a)-(c)
+    # (the oracle waits on the host for every eigh; the studies keep the
+    # card busy).
+    t_oracle = time.time()
+    oracle = [subprocess.Popen(
+        [sys.executable, "-m", "sig_sdp_mmw_torch.experiments."
+         "sim_mmw_oracle_z", "--cells", "10",
+         "--geometry", GEOMETRY, "--seeds", str(seed),
+         "--out", os.path.join(tmp, f"oracle_geometry_{seed}")],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for seed in range(len(ORACLE_GEOMETRY_Z))]
+    try:
+        rec.update(studies_short_runs(tb))
+        outs = [p.communicate(timeout=600)[0] for p in oracle]
+    finally:
+        for p in oracle:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    prefix = "[sim_mmw_oracle_z] "
+    seeds = []
+    for p, out in zip(oracle, outs):
+        sys.stdout.write(out)
+        if p.returncode:
+            raise AssertionError(f"the oracle study exited {p.returncode}")
+        seeds += [json.loads(line[len(prefix):]) for line in out.splitlines()
+                  if line.startswith(prefix)]
+    rec["oracle_geometry"] = dict(
+        Z=[r["Z"] for r in seeds], jax_cpu_Z=ORACLE_GEOMETRY_Z,
+        rem={r["seed"]: r["rem"] for r in seeds},
+        seconds=time.time() - t_oracle)
+    log(f"[10 oracle] geometry seeds 0-{len(ORACLE_GEOMETRY_Z) - 1}: "
+        f"{json.dumps(rec['oracle_geometry'])}")
+    if (len(seeds) != len(ORACLE_GEOMETRY_Z)
+            or any(r["rem"]["scs"] for r in seeds)
+            or any(abs(r["Z"] - z) > 1
+                   for r, z in zip(seeds, ORACLE_GEOMETRY_Z))):
+        raise AssertionError(f"oracle on the JAX users: Z "
+                             f"{rec['oracle_geometry']['Z']} not within 1 "
+                             f"of the JAX package's {ORACLE_GEOMETRY_Z}")
+    return rec
+
+
+def studies_short_runs(tb) -> dict:
+    """Phase 10 (a)-(c): the three studies' entry points, each held to its
+    routes."""
+    import torch
+
+    from sig_sdp_mmw_torch.experiments import (bler_tail_fix,
+                                               bler_tail_sweep, conv_probe)
+
+    rec = {}
+
+    def launched(launches, kernel, route, name):
+        n = launches.get(kernel, {}).get(route, 0)
+        if n <= 0 or set(launches.get(kernel, {})) != {route}:
+            raise AssertionError(f"{name}: {kernel} launches {launches}, "
+                                 f"want some on {route!r} only")
+        return n
+
+    # (a) conv_probe at 100k, one segment of 125 iterations on bf16 blocks.
+    t0 = time.time()
+    cp = conv_probe.main(cell=CELL, nit=625, seg=125, dtypes=("bf16",),
+                         device="cuda", segments=1)
+    lc = cp["launches"]["bf16"]
+    (it, ub), = cp["runs"]["bf16"]
+    rec["conv_probe"] = dict(K=cp["K"], Z=cp["Z"], it=it, ub=ub,
+                             launches=lc, seconds=time.time() - t0)
+    log(f"[10 conv_probe] K={cp['K']} Z={cp['Z']} ub at {it} {ub!r} (JAX "
+        f"record {CONV_UB125_REF}); launches {json.dumps(lc)} "
+        f"[{rec['conv_probe']['seconds']:.1f}s]")
+    if not math.isfinite(ub) or abs(ub - CONV_UB125_REF) > 0.03:
+        raise AssertionError(f"conv_probe: ub {ub} at {it} is not within "
+                             f"0.03 of {CONV_UB125_REF}")
+    for kernel in ("bsr_spmm_flat", "bcsr_spmm"):
+        if launched(lc, kernel, "ring", "conv_probe") < it:
+            raise AssertionError(f"conv_probe: fewer {kernel} launches "
+                                 f"than iterations: {lc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) bler_tail_fix at a small cell, the case without a margin.
+    t0 = time.time()
+    tf = bler_tail_fix.run_case(STUDY_CELL, None, device="cuda")
+    rec["bler_tail_fix"] = dict(
+        {k: tf.get(k) for k in ("K", "lb", "Z_fin", "verified",
+                                "frac_above_1e5", "launches")},
+        probes=[(p["Z"], p["rem"]) for p in tf["probes"]],
+        seconds=time.time() - t0)
+    log(f"[10 bler_tail_fix] {json.dumps(rec['bler_tail_fix'])}")
+    if tf["Z_fin"] is None or not tf["verified"]["ok"]:
+        raise AssertionError(f"bler_tail_fix: no verified Z: {tf}")
+    for kernel in ("bsr_spmm_flat", "bcsr_spmm"):
+        launched(tf["launches"], kernel, "ring", "bler_tail_fix")
+
+    # (c) bler_tail_sweep at that cell, one ratio.
+    t0 = time.time()
+    sw = bler_tail_sweep.run_one(0.1, STUDY_CELL, RHO, SEED, 150, ETA,
+                                 NATTEMPT, 128, device="cuda")
+    rec["bler_tail_sweep"] = dict(
+        {k: sw[k] for k in ("K", "nnz_S", "Z", "rem", "verified",
+                            "frac_above_1e-5", "probe_Z", "launches")},
+        seconds=time.time() - t0)
+    log(f"[10 bler_tail_sweep] {json.dumps(rec['bler_tail_sweep'])}")
+    if sw["rem"] != 0 or not sw["verified"]["ok"]:
+        raise AssertionError(f"bler_tail_sweep: rem {sw['rem']}, "
+                             f"{sw['verified']}")
+    for kernel in ("bsr_spmm_flat", "bcsr_spmm"):
+        launched(sw["launches"], kernel, "ring_f32", "bler_tail_sweep")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1625,6 +1772,18 @@ def main() -> int:
         pair = block_pair_phase(tb, journal_dir,
                                 journal["sim_mmw_oracle_z"]["Z"])
         log(f"[time] phase 9 {time.time() - t_phase:.1f}s")
+
+    # ---- 10. the 100k quality studies, the oracle on the JAX users ---------
+    t_phase = time.time()
+    reset_launches(tb)
+    with tempfile.TemporaryDirectory() as tmp:
+        studies = studies_phase(tb, tmp)
+    studies_launches = {"bsr_spmm_flat": tb.bsr_spmm_flat.launches,
+                        "bcsr_spmm_ell": tb.bcsr_spmm.launches}
+    if tb.bsr_spmm_vres.launches:
+        raise AssertionError("the studies launched the V-resident kernel")
+    log(f"[10 studies] launches {json.dumps(studies_launches)}")
+    log(f"[time] phase 10 {time.time() - t_phase:.1f}s")
     log(f"[done] {time.time() - t_start:.1f}s")
 
     def per_rank(name):
@@ -1647,8 +1806,11 @@ def main() -> int:
                 "sharded_launches_per_rank": per_rank(
                     "bcsr_spmm" if name == "bcsr_spmm_ell" else name),
                 **({"block_pair_launches": pair["pair"]["launches"]}
-                   if name == "bcsr_spmm_ell" else {})}
+                   if name == "bcsr_spmm_ell" else {}),
+                **({"studies_launches": studies_launches[name]}
+                   if name in studies_launches else {})}
 
+    log(f"[10 summary] {json.dumps(studies)}")
     log(f"[9 summary] {json.dumps(pair)}")
     log(f"[7 summary] {json.dumps(journal)}")
     log(f"[6 summary] {json.dumps(midk)}")

@@ -221,6 +221,10 @@ class WirelessEnv:
                                    device=self.device)
 
         n = self.params.n_sta
+        for name, a in (("sta_locs", sta_locs), ("sta_dirs", sta_dirs)):
+            if a is not None and np.shape(a) != (n, 2):
+                raise ValueError(f"{name} has shape {np.shape(a)}; this "
+                                 f"scenario places ({n}, 2) users")
         self.ap_locs = ap_grid(self.params, geo, self.device)
         self.sta_locs = (placed(sta_locs) if sta_locs is not None else
                          self.draws.locations((n, 2), geo)

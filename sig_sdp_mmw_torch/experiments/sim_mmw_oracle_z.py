@@ -17,21 +17,35 @@ them and appends).  Each instance also prints one
 ``[sim_mmw_oracle_z]`` JSON line with the oracle's Z and every method's
 remainder and seconds.  Runs on ``--device`` (default cuda).
 
+``--geometry <npz>`` places seed s's users at the npz's ``sta_locs[s]`` and
+``sta_dirs[s]`` in place of the port's own draws: with
+``tests/fixtures/oracle_z_cell10_geometry.npz`` (the JAX package's users of
+seeds 0-99 at cell 10) the study runs on the users of the JAX record.  It
+changes the input only; the solvers, the rounding and their draws stay.
+
     python -m sig_sdp_mmw_torch.experiments.sim_mmw_oracle_z --cells 10 \\
-        --repeat 1
+        --repeat 1 [--geometry tests/fixtures/oracle_z_cell10_geometry.npz]
 """
 
 import json
 import time
 
+import numpy as np
+
 from sig_sdp_mmw_torch.experiments.common import (experiment_args, make_log,
-                                                  setup)
+                                                  placed_users, setup)
 
 
 def main(argv=None):
     p = experiment_args(__doc__, repeat=100, cells=[10])
     p.add_argument("--oracle_nit", type=int, default=500)
     p.add_argument("--mmw_nit", type=int, default=150)
+    p.add_argument("--geometry", type=str, default=None,
+                   help="npz of sta_locs/sta_dirs [seeds, K, 2]: seed s "
+                        "takes row s")
+    p.add_argument("--seeds", type=int, nargs="*", default=None,
+                   help="these seeds in place of 0..repeat-1 (one process "
+                        "of a sweep split over several)")
     args = p.parse_args(argv)
     setup(args)
     log, path = make_log(__file__, args.out, append=True)
@@ -45,13 +59,16 @@ def main(argv=None):
     RHO = args.rho
     tag = str(int(RHO * 10000))
     ck = SweepCheckpoint(path)
+    geo = dict(np.load(args.geometry)) if args.geometry else None
 
     for cell in args.cells:
-        for seed in range(args.repeat):
+        for seed in (args.seeds if args.seeds is not None
+                     else range(args.repeat)):
             if ck.done(f"cell{cell}", seed):
                 continue
             e = WirelessEnv(cell_size=cell, sta_density_per_1m2=RHO,
-                            seed=seed, device=args.device)
+                            seed=seed, device=args.device,
+                            **placed_users(geo, seed))
             st = e.generate_S_Q_hmax()
             secs, rems = {}, {}
 

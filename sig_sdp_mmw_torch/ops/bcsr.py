@@ -20,8 +20,9 @@ dense 128x128 blocks of which only a few percent of entries are nonzero:
 
 Each kernel wrapper takes the plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernel or raises; ``<wrapper>.launches`` counts its
-launches and ``<wrapper>.generic_launches`` those through a body of the
-shapes without a 128x128 fast path (:func:`spmm_route`).  The host packers are
+launches, ``<wrapper>.route_launches`` them by the body they took
+(:func:`spmm_route`'s name for it) and ``<wrapper>.generic_launches`` those
+through a body of the shapes without a 128x128 fast path.  The host packers are
 numpy (above ``_NATIVE_PACK_MIN_NNZ`` nonzeros, the shared C++ packer) and
 give the JAX package's arrays exactly; the containers hold tensors and move
 with ``.to(device)``.
@@ -226,6 +227,7 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     chunking, or raises.  V's columns are padded with zeros to a multiple of
     8 for the kernel (the gap Lanczos sends D=1) and the result is sliced
     back.  ``bcsr_spmm.launches`` counts kernel launches,
+    ``bcsr_spmm.route_launches`` them by route and
     ``bcsr_spmm.generic_launches`` those of them on a route of
     ``GENERIC_ROUTES``.
 
@@ -283,11 +285,13 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm: launch failed with cudaError {rc}")
     bcsr_spmm.launches += 1
+    bcsr_spmm.route_launches[route] = bcsr_spmm.route_launches.get(route, 0) + 1
     bcsr_spmm.generic_launches += route in GENERIC_ROUTES
     return out if D8 == D else out[:, :D]
 
 
 bcsr_spmm.launches = bcsr_spmm.generic_launches = 0
+bcsr_spmm.route_launches = {}
 
 
 def bcsr_spmm_transpose(mat_bcols: torch.Tensor, blocks: torch.Tensor,
@@ -700,6 +704,7 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     Any D: V's columns are padded with zeros to a multiple of 8 for the
     kernel (:func:`pad_columns`) and the result is sliced back.
     ``bsr_spmm_flat.launches`` counts kernel launches,
+    ``bsr_spmm_flat.route_launches`` them by route and
     ``bsr_spmm_flat.generic_launches`` those of them on a route of
     ``GENERIC_ROUTES``.
 
@@ -749,11 +754,13 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_flat: launch failed with cudaError {rc}")
     bsr_spmm_flat.launches += 1
+    bsr_spmm_flat.route_launches[route] = bsr_spmm_flat.route_launches.get(route, 0) + 1
     bsr_spmm_flat.generic_launches += route in GENERIC_ROUTES
     return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
 bsr_spmm_flat.launches = bsr_spmm_flat.generic_launches = 0
+bsr_spmm_flat.route_launches = {}
 
 
 def vres_operand(V: torch.Tensor) -> torch.Tensor:
@@ -784,6 +791,7 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     float32), built into this kernel's library, with no residency hint
     (:func:`spmm_route`).
     ``bsr_spmm_vres.launches`` counts kernel launches,
+    ``bsr_spmm_vres.route_launches`` them by route and
     ``bsr_spmm_vres.generic_launches`` those of them on a route of
     ``GENERIC_ROUTES``."""
     if V.device.type == "cpu":
@@ -831,11 +839,13 @@ def bsr_spmm_vres(mat: FlatBsr, V: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_vres: launch failed with cudaError {rc}")
     bsr_spmm_vres.launches += 1
+    bsr_spmm_vres.route_launches[route] = bsr_spmm_vres.route_launches.get(route, 0) + 1
     bsr_spmm_vres.generic_launches += route in GENERIC_ROUTES
     return out if D8 == V.shape[1] else out[:, :V.shape[1]]
 
 
 bsr_spmm_vres.launches = bsr_spmm_vres.generic_launches = 0
+bsr_spmm_vres.route_launches = {}
 
 
 def bcsr_pair_from_state(S_csr, Q_csr, block: int = 128,

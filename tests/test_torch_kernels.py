@@ -427,19 +427,22 @@ def test_generic_tile_matches_reference_on_cuda(kind, block, D, dt):
     """The short-block tile (bfloat16 and float32) of the three kernels
     against their plain versions on the card, at every block shape without
     a 128x128 fast path and D from 1 to 200 (two 128-column tiles): to 1e-5
-    of max|out|, two launches bitwise equal, counted as generic launches."""
+    of max|out|, two launches bitwise equal, counted as generic launches
+    and on their route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mat, kernel, plain = _generic_case(kind, block, getattr(torch, dt))
     V = torch.randn((mat.nrows, D), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(4))
+    route = tb.spmm_route(kind, *block, getattr(torch, dt))
+    assert route == ("short_bf16" if dt == "bfloat16" else "short_f32")
     n0, g0 = kernel.launches, kernel.generic_launches
+    r0 = dict(kernel.route_launches)
     got = kernel(mat, V)
     assert torch.equal(got, kernel(mat, V)) and got.shape == (mat.nrows, D)
     assert kernel.launches == n0 + 2
-    route = tb.spmm_route(kind, *block, getattr(torch, dt))
-    assert route == ("short_bf16" if dt == "bfloat16" else "short_f32")
     assert kernel.generic_launches == g0 + 2
+    assert kernel.route_launches == dict(r0, **{route: r0.get(route, 0) + 2})
     want = plain(mat, V)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 

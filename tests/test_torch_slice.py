@@ -128,6 +128,12 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.experiments.plot_results,"
             " sig_sdp_mmw_torch.experiments.oracle_z_report,"
             " sig_sdp_mmw_torch.experiments.gap_c15_sweep,"
+            " sig_sdp_mmw_torch.experiments.oracle_z_diagnose,"
+            " sig_sdp_mmw_torch.experiments.conv_probe,"
+            " sig_sdp_mmw_torch.experiments.bler_tail_fix,"
+            " sig_sdp_mmw_torch.experiments.bler_tail_sweep,"
+            " port_studies.oracle_z_pair, port_studies.oracle_z_devices,"
+            " port_studies.oracle_z_eigh,"
             " sig_sdp_mmw_torch.utils.stats, sig_sdp_mmw_torch.utils.logging,"
             " sig_sdp_mmw_torch.native.builder, sig_sdp_mmw_torch.env.env,"
             " sig_sdp_mmw_torch.env.phy; "
@@ -137,12 +143,15 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """Neither the package nor chip_smoke.py imports jax or the JAX
-    package, on any path (lazy imports included)."""
+    """Neither the package, the port's one-off studies (``port_studies/``)
+    nor chip_smoke.py imports jax or the JAX package, on any path (lazy
+    imports included)."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|sig_sdp_mmw_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "sig_sdp_mmw_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in ("sig_sdp_mmw_torch", "port_studies"):
+        for root, _, names in os.walk(os.path.join(REPO, top)):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
     assert len(files) > 20
     for path in files:
         with open(path) as f:

@@ -1,11 +1,13 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): carry
 JAX containers across as numpy, hand the JAX package's random draws to the
-port on the JAX schedule, keep torch to one thread while a module runs, and
-run a JAX experiment script and its port side by side."""
+port on the JAX schedule, keep torch to one thread while a module runs,
+run a JAX experiment script and its port side by side, and load a script of
+the repo's ``tools/`` or ``port_studies/`` as a module."""
 
 import csv
 import dataclasses
 import importlib
+import importlib.util
 import os
 
 import jax
@@ -15,6 +17,17 @@ import pytest
 import torch
 
 _JNP_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def script(folder, name):
+    """``<repo>/<folder>/<name>.py`` as a module (the JAX ``tools/`` and
+    the port's one-off ``port_studies/`` are scripts, not packages)."""
+    spec = importlib.util.spec_from_file_location(
+        f"{folder}_{name}", os.path.join(REPO, folder, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(scope="module", autouse=True)
