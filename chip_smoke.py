@@ -33,7 +33,8 @@
      at 8x128, 32x32 and 8x8 (bf16 and float32), 16x128 and 16x16 (bf16);
      V-resident at 8x128 (bf16); the K=1,009,200 S̃ as flat 8x128 bf16
      blocks, G=8, D=16
-     (126,160 block-rows); the mid-K path's own operands (phase 6's cell
+     (126,160 block-rows) and as block-ELL 64x64 bf16 blocks at D=48 (the
+     million-link study's operand, phase 11); the mid-K path's own operands (phase 6's cell
      40 from bcsr_operands_from_state, 32x32 bf16 blocks): S̃ through the
      flat kernel and through the block-ELL kernel at D=128 (the solver's
      D_pad) and D=8 (the gap log's D=1 padded), and Q through the
@@ -182,6 +183,24 @@
    and 1 (tests/fixtures/oracle_z_cell10_geometry.npz), one process a
    seed beside (a)-(c): the oracle feasible and its Z within 1 of the JAX
    package's on the CPU (ORACLE_GEOMETRY_Z).
+11. The six tools studies (experiments/plateau_study.py,
+   million_link.py, million_z19_probe.py, reorder_bench.py, perf_sweep.py,
+   profile_bcsr_build.py) at a short depth: (a) plateau_study's row at
+   cell 24 (K=1,728) with one segment of 125 iterations: Z_fin within 1
+   of PLATEAU_VS_K.json's 14, ub finite, kernels #1 and #3 launched on
+   ring only; (b) million_link at cell 60 (K=10,800), 64x64 bf16 blocks,
+   nit 6 in segments of 3, with the device rounding: kernel #3 launched
+   on short_bf16 only (#1 not at all), rem 0 exactly when the checker
+   passes, the measured peaks of device memory after the build and after
+   the solve above 0 and below the card's total; (c) the z19 probe's body
+   at cell 60, Z = lb + 4, nit 9: rem 0 exactly when the checker passes,
+   #3 on ring only; (d) reorder_bench's raster 128x128 and Hilbert 8x128
+   runs at cell 60, nit 5: the same K and nnz, #1 and #3 on ring and on
+   short_bf16 respectively; (e) perf_sweep at m=32 and 8 on the tool's
+   users (tests/fixtures/perf_sweep_cell10_seed7_geometry.npz), nit 150:
+   both ub finite, no kernel launched; (f) profile_bcsr_build at cell 60,
+   every stage timed.  The kernels' launches in this phase are
+   tools_launches in the kernels line.
 Each phase prints its seconds ("[time] phase N").
 
 Every kernel counts its launches; each path's counts are set to 0 just
@@ -240,6 +259,14 @@ ORACLE_GEOMETRY_Z = [13, 11]
 # segment of 125 iterations.
 STUDY_CELL = 24
 CONV_UB125_REF = 0.2477
+# Phase 11: PLATEAU_VS_K.json's Z_fin at cell 24, the tools' mid cell
+# (K=10,800) for the million-link, z19 and reorder drives, and the
+# perf_sweep users (tests/fixtures/, written by tests/torch_jax_geometry.py).
+PLATEAU_CELL, PLATEAU_Z_REF = 24, 14
+TOOLS_CELL = 60
+PERF_SWEEP_GEOMETRY = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+    "perf_sweep_cell10_seed7_geometry.npz")
 JOURNAL_CELL, JOURNAL_K = 15, 675     # the journal's largest cell
 DENSE_NIT = 150
 E2E_Z_REF = 16        # E2E_LARGE.json (the JAX tool on cell 183)
@@ -1323,6 +1350,113 @@ def studies_short_runs(tb) -> dict:
     return rec
 
 
+def tools_phase(tb, tmp: str) -> dict:
+    """Phase 11: the six tools studies' entry points at a short depth,
+    each held to its routes (module docstring, phase 11)."""
+    import numpy as np
+    import torch
+
+    from sig_sdp_mmw_torch.env.large import LargeEnv
+    from sig_sdp_mmw_torch.experiments import (million_link,
+                                               million_z19_probe,
+                                               perf_sweep, plateau_study,
+                                               profile_bcsr_build,
+                                               reorder_bench)
+
+    rec = {}
+
+    def routes(launches, name, want):
+        """Each kernel of ``want`` launched on its route only, the others
+        not at all."""
+        got = {k: set(v) for k, v in launches.items()}
+        if got != {k: {r} for k, r in want.items()} or any(
+                n <= 0 for v in launches.values() for n in v.values()):
+            raise AssertionError(f"{name}: launches {launches}, want some "
+                                 f"on {want} only")
+
+    def done(name, r, t0):
+        r["seconds"] = time.time() - t0
+        rec[name] = r
+        log(f"[11 {name}] {json.dumps(r)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) plateau_study's row at cell 24, one segment of 125 iterations.
+    t0 = time.time()
+    row = plateau_study.run_cell(PLATEAU_CELL, device="cuda", segments=1)
+    done("plateau_study", {k: row[k] for k in ("K", "C", "lb", "Z_fin",
+                                               "probes", "curve",
+                                               "launches")}, t0)
+    if (row["Z_fin"] is None or abs(row["Z_fin"] - PLATEAU_Z_REF) > 1
+            or not math.isfinite(row["ub_final"])):
+        raise AssertionError(f"plateau_study: Z_fin {row['Z_fin']} (record "
+                             f"{PLATEAU_Z_REF}), ub {row.get('ub_final')}")
+    routes(row["launches"], "plateau_study",
+           {"bsr_spmm_flat": "ring", "bcsr_spmm": "ring"})
+
+    # (b) million_link at the tools' mid cell, 64x64 blocks, with rounding.
+    t0 = time.time()
+    ml = million_link.main(cell=TOOLS_CELL, nit=6, block=64, segment=3,
+                           do_rounding=True, device="cuda",
+                           out_path=os.path.join(tmp, "million_link.json"))
+    done("million_link", {k: ml[k] for k in (
+        "K", "bcsr_Kb", "bcsr_maxblk", "Z_probe", "ub_curve", "rounding_rem",
+        "verified", "budget_gb", "launches")}, t0)
+    bud = ml["budget_gb"]
+    if (ml["rounding_rem"] == 0) != ml["verified"]["ok"]:
+        raise AssertionError(f"million_link: rem {ml['rounding_rem']}, "
+                             f"verified {ml['verified']}")
+    if not all(0 < bud[k] < bud["device_total"] for k in (
+            "measured_peak_after_build", "measured_peak_after_solve")):
+        raise AssertionError(f"million_link: budget {bud}")
+    routes(ml["launches"], "million_link", {"bcsr_spmm": "short_bf16"})
+
+    # (c) the z19 probe's body at the mid cell, Z = lb + 4.
+    t0 = time.time()
+    S, Q, h = LargeEnv(TOOLS_CELL, RHO, seed=SEED).generate_state_csr()
+    lb = int(np.diff(Q.indptr).max()) + 1
+    zp = million_z19_probe.probe(S, Q, h, lb + 4, nit=9, device="cuda")
+    del S, Q, h
+    done("million_z19_probe", zp, t0)
+    if (zp["rem"] == 0) != zp["verified"]["ok"]:
+        raise AssertionError(f"million_z19_probe: rem {zp['rem']}, "
+                             f"verified {zp['verified']}")
+    routes(zp["launches"], "million_z19_probe", {"bcsr_spmm": "ring"})
+
+    # (d) reorder_bench's raster 128 and Hilbert 8x128 runs.
+    t0 = time.time()
+    runs = [reorder_bench.run_one(order, cell=TOOLS_CELL, nit=5, block=b,
+                                  device="cuda")
+            for order, b in (("raster", 128), ("hilbert", (8, 128)))]
+    done("reorder_bench", {"runs": runs}, t0)
+    if len({(r["K"], r["nnz"]) for r in runs}) != 1:
+        raise AssertionError(f"reorder_bench: K, nnz differ: {runs}")
+    for r, route in zip(runs, ("ring", "short_bf16")):
+        routes(r["launches"], f"reorder_bench {r['order']} {r['block']}",
+               {"bsr_spmm_flat": route, "bcsr_spmm": route})
+
+    # (e) perf_sweep at m=32 and 8 on the tool's users (the dense path:
+    # no kernel).
+    t0 = time.time()
+    ps = perf_sweep.main(ms=(32, 8), geometry=PERF_SWEEP_GEOMETRY,
+                         device="cuda")
+    done("perf_sweep", {k: ps[k] for k in ("K", "rows", "max_ub_diff",
+                                           "launches")}, t0)
+    if (not all(math.isfinite(r["ub_final"]) for r in ps["rows"])
+            or ps["launches"]):
+        raise AssertionError(f"perf_sweep: {ps}")
+
+    # (f) the host stage profile of the block-operand build.
+    t0 = time.time()
+    pb = profile_bcsr_build.main(cell=TOOLS_CELL, device="cuda")
+    done("profile_bcsr_build", {k: pb[k] for k in (
+        "K", "stages_s", "maxblk", "blocks_gib", "gram_map_shape",
+        "weights_nnz", "q_blocks")}, t0)
+    if not all(math.isfinite(v) and v >= 0 for v in pb["stages_s"].values()):
+        raise AssertionError(f"profile_bcsr_build: {pb['stages_s']}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1606,6 +1740,12 @@ def main() -> int:
         raise AssertionError(f"million-link 8x128 operand has only "
                              f"{r['rows'] // 8} block-rows")
     log(f"[2 generic] million-link 8x128 [{time.time() - t0:.1f}s]")
+    # The million-link S̃ as block-ELL 64x64 bf16 blocks at D=48, the
+    # operand of experiments/million_link.py at the records' block size
+    # (phase 11).
+    t0 = time.time()
+    check_shape("ell", St1, (64, 64), dims=(48,), iters=5, op="1M S~")
+    log(f"[2 generic] million-link 64x64 [{time.time() - t0:.1f}s]")
     del S, Q, St, St1
     gc.collect()
     torch.cuda.empty_cache()
@@ -1784,6 +1924,19 @@ def main() -> int:
         raise AssertionError("the studies launched the V-resident kernel")
     log(f"[10 studies] launches {json.dumps(studies_launches)}")
     log(f"[time] phase 10 {time.time() - t_phase:.1f}s")
+
+    # ---- 11. the tools studies ---------------------------------------------
+    t_phase = time.time()
+    reset_launches(tb)
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = tools_phase(tb, tmp)
+    tools_launches = {"bsr_spmm_flat": tb.bsr_spmm_flat.launches,
+                      "bcsr_spmm_ell": tb.bcsr_spmm.launches}
+    if tb.bsr_spmm_vres.launches:
+        raise AssertionError("the tools studies launched the V-resident "
+                             "kernel")
+    log(f"[11 tools] launches {json.dumps(tools_launches)}")
+    log(f"[time] phase 11 {time.time() - t_phase:.1f}s")
     log(f"[done] {time.time() - t_start:.1f}s")
 
     def per_rank(name):
@@ -1808,8 +1961,11 @@ def main() -> int:
                 **({"block_pair_launches": pair["pair"]["launches"]}
                    if name == "bcsr_spmm_ell" else {}),
                 **({"studies_launches": studies_launches[name]}
-                   if name in studies_launches else {})}
+                   if name in studies_launches else {}),
+                **({"tools_launches": tools_launches[name]}
+                   if name in tools_launches else {})}
 
+    log(f"[11 summary] {json.dumps(tools)}")
     log(f"[10 summary] {json.dumps(studies)}")
     log(f"[9 summary] {json.dumps(pair)}")
     log(f"[7 summary] {json.dumps(journal)}")

@@ -15,6 +15,13 @@ feasible Z.  A case whose window holds no feasible Z is recorded with
 Draws: the probe at Z solves with ``TorchDraws(3, stream=Z)`` and rounds
 with ``TorchDraws(3, stream=99 + Z)`` (the tool's ``fold_in(PRNGKey(3), Z)``
 and ``fold_in(PRNGKey(3), 99 + Z)``); ``run_case(draws=)`` takes others.
+``--draw-seeds`` runs each case once per seed s in place of 3
+(``TorchDraws(s, stream=Z)``, ``TorchDraws(s, stream=99 + Z)``), each case
+record carrying its ``draw_seed``.  ``--reround-attempts N``: where no seed
+of a margin finds a feasible Z, each seed's probe at the window's top is
+solved again with its own draws (the same factor) and rounded with N
+attempts in place of ``nattempt``, as a report (``reround`` in the case);
+the search's answer is not changed.
 The block operands hold 128x128 bf16 blocks with the stored transpose and
 the flat twins (groups of 8): S̃ and S̃ᵀ go through kernel #1 and Q through
 kernel #3 (the tool puts all on the block-ELL product).  Each case
@@ -22,6 +29,8 @@ records its kernel launches by route and its seconds; the record names the
 card.  Writes JSON only to ``--out`` (after every case).
 
     python -m sig_sdp_mmw_torch.experiments.bler_tail_fix --out tail_fix.json
+    python -m sig_sdp_mmw_torch.experiments.bler_tail_fix --tail-zs 8 \
+        --draw-seeds 0 1 2 3 4 5 6 7 --reround-attempts 10 --out seeds.json
 """
 
 from __future__ import annotations
@@ -37,27 +46,25 @@ import torch
 print = functools.partial(print, flush=True)
 
 
-def run_case(cell, tail_z, nit=60, nattempt=6, win=8, block=128,
-             device="cuda", draws=None):
-    """One case of the tool (``run_case``): the search, the verification
-    and the BLER statistics.  ``draws(role, Z)``: the draws object of the
-    probe at Z, ``role`` "solve" or "round"."""
+DRAW_SEED = 3
+
+
+def seed_draws(seed, device):
+    """The tool's draws by role on seed ``seed`` (the tool's is 3)."""
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    def draws(role, Z):
+        return TorchDraws(seed, device, stream=Z if role == "solve"
+                          else 99 + Z)
+    return draws
+
+
+def _case_state(cell, tail_z, block, device):
     from sig_sdp_mmw_torch.core.ell import ell_slim_from_csr
     from sig_sdp_mmw_torch.env.large import LargeEnv
-    from sig_sdp_mmw_torch.experiments.common import (launch_snapshot,
-                                                      launches_since)
-    from sig_sdp_mmw_torch.models.mmw_ell import mmw_solve_ell
-    from sig_sdp_mmw_torch.models.rounding_ell import (rounding_native_csr,
-                                                       verify_assignment_csr)
     from sig_sdp_mmw_torch.ops.bcsr import bcsr_operands_from_state
-    from sig_sdp_mmw_torch.utils.draws import TorchDraws
-    from sig_sdp_mmw_torch.utils.tensors import cuda_sync, resolve_device
+    from sig_sdp_mmw_torch.utils.tensors import cuda_sync
 
-    device = resolve_device(device)
-    if draws is None:
-        def draws(role, Z):
-            return TorchDraws(3, device, stream=Z if role == "solve"
-                              else 99 + Z)
     env = LargeEnv(cell, 75e-4, seed=0, tail_margin_z=tail_z)
     S, Q, h = env.generate_state_csr()
     slim = ell_slim_from_csr(S, Q, h, device=device)
@@ -65,8 +72,40 @@ def run_case(cell, tail_z, nit=60, nattempt=6, win=8, block=128,
                                    store_transpose=True, flat_group=8,
                                    device=device)
     cuda_sync(ops)
-    lb = int(np.diff(Q.indptr).max()) + 1
+    return env, (S, Q, h), slim, ops
+
+
+def _probe(state, slim, ops, Z, nit, nattempt, draws):
+    """One probe at Z: the solve, then the native rounding.  Returns
+    (ub, z_vec, rem)."""
+    from sig_sdp_mmw_torch.models.mmw_ell import mmw_solve_ell
+    from sig_sdp_mmw_torch.models.rounding_ell import rounding_native_csr
+
     D_pad = 48
+    out = mmw_solve_ell(slim, float(Z), nit=nit, eta=0.05, D_pad=D_pad,
+                        rank_pad=D_pad, draws=draws("solve", Z), lanczos_m=8,
+                        bcsr=ops, rsvd_iters=2)
+    z, _, rem = rounding_native_csr(Z, out.X_half, *state,
+                                    draws("round", Z), nattempt=nattempt)
+    return float(out.ub_final), z, int(rem)
+
+
+def run_case(cell, tail_z, nit=60, nattempt=6, win=8, block=128,
+             device="cuda", draws=None):
+    """One case of the tool (``run_case``): the search, the verification
+    and the BLER statistics.  ``draws(role, Z)``: the draws object of the
+    probe at Z, ``role`` "solve" or "round" (default :func:`seed_draws` of
+    the tool's seed 3)."""
+    from sig_sdp_mmw_torch.experiments.common import (launch_snapshot,
+                                                      launches_since)
+    from sig_sdp_mmw_torch.models.rounding_ell import verify_assignment_csr
+    from sig_sdp_mmw_torch.utils.tensors import resolve_device
+
+    device = resolve_device(device)
+    draws = draws or seed_draws(DRAW_SEED, device)
+    env, state, slim, ops = _case_state(cell, tail_z, block, device)
+    S, Q, h = state
+    lb = int(np.diff(Q.indptr).max()) + 1
 
     snap = launch_snapshot()
     lo, hi = lb, lb + win
@@ -75,14 +114,8 @@ def run_case(cell, tail_z, nit=60, nattempt=6, win=8, block=128,
     while lo <= hi:
         mid = (lo + hi + 1) // 2
         t0 = time.time()
-        out = mmw_solve_ell(slim, float(mid), nit=nit, eta=0.05, D_pad=D_pad,
-                            rank_pad=D_pad, draws=draws("solve", mid),
-                            lanczos_m=8, bcsr=ops, rsvd_iters=2)
-        u = float(out.ub_final)
-        z, _, rem = rounding_native_csr(mid, out.X_half, S, Q, h,
-                                        draws("round", mid),
-                                        nattempt=nattempt)
-        probes.append(dict(Z=mid, ub=u, rem=int(rem), s=time.time() - t0))
+        u, z, rem = _probe(state, slim, ops, mid, nit, nattempt, draws)
+        probes.append(dict(Z=mid, ub=u, rem=rem, s=time.time() - t0))
         print(f"  tail_z={tail_z} probe Z={mid} ub={u:.3f} rem={rem}")
         if rem == 0:
             ok, ni, na = verify_assignment_csr(S, Q, h, z)
@@ -109,21 +142,57 @@ def run_case(cell, tail_z, nit=60, nattempt=6, win=8, block=128,
     return rec
 
 
-def main(cell=183, tail_zs=(None, 8, 5), device="cuda", out=None):
+def reround_top(cell, tail_z, nattempt, nit=60, win=8, block=128,
+                device="cuda", draws=None):
+    """A report: the probe at the window's top (lb + ``win``) solved with
+    ``draws`` (the search's own factor there) and rounded with
+    ``nattempt`` attempts; the first attempts draw as the search's did."""
+    from sig_sdp_mmw_torch.models.rounding_ell import verify_assignment_csr
+    from sig_sdp_mmw_torch.utils.tensors import resolve_device
+
+    device = resolve_device(device)
+    draws = draws or seed_draws(DRAW_SEED, device)
+    _, state, slim, ops = _case_state(cell, tail_z, block, device)
+    Z = int(np.diff(state[1].indptr).max()) + 1 + win
+    u, z, rem = _probe(state, slim, ops, Z, nit, nattempt, draws)
+    ok, ni, na = verify_assignment_csr(*state, z)
+    print(f"  tail_z={tail_z} reround Z={Z} attempts={nattempt} ub={u:.3f} "
+          f"rem={rem} verified={ok}")
+    return dict(Z=Z, nattempt=nattempt, ub=u, rem=rem,
+                verified=dict(ok=bool(ok), interf=int(ni), asso=int(na)))
+
+
+def main(cell=183, tail_zs=(None, 8, 5), device="cuda", out=None,
+         draw_seeds=(DRAW_SEED,), reround_attempts=None, nit=60):
     from sig_sdp_mmw_torch.experiments.common import card_info
     from sig_sdp_mmw_torch.utils.tensors import resolve_device
 
     device = resolve_device(device)
     rec = {"device": card_info(device), "cell": cell, "cases": []}
-    for tz in tail_zs:
-        t0 = time.time()
-        case = run_case(cell, tz, device=device)
-        case["case_s"] = time.time() - t0
-        print("[bler_tail_fix] " + json.dumps(case))
-        rec["cases"].append(case)
+
+    def save():
         if out:
             with open(out, "w") as f:
                 json.dump(rec, f, indent=1)
+
+    for tz in tail_zs:
+        cases = []
+        for seed in draw_seeds:
+            t0 = time.time()
+            case = run_case(cell, tz, nit=nit, device=device,
+                            draws=seed_draws(seed, device))
+            case["draw_seed"] = seed
+            case["case_s"] = time.time() - t0
+            print("[bler_tail_fix] " + json.dumps(case))
+            cases.append(case)
+            rec["cases"].append(case)
+            save()
+        if reround_attempts and all(c["Z_fin"] is None for c in cases):
+            for case in cases:
+                case["reround"] = reround_top(
+                    cell, tz, reround_attempts, nit=nit, device=device,
+                    draws=seed_draws(case["draw_seed"], device))
+                save()
     if out:
         print(f"wrote {out}")
     return rec
@@ -138,7 +207,11 @@ if __name__ == "__main__":
     ap.add_argument("--cell", type=int, default=183)
     ap.add_argument("--tail-zs", type=_tail_z, nargs="*",
                     default=[None, 8, 5], help="None for no margin")
+    ap.add_argument("--draw-seeds", type=int, nargs="*", default=[DRAW_SEED])
+    ap.add_argument("--reround-attempts", type=int, default=None)
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--out", type=str, default=None)
     a = ap.parse_args()
-    main(a.cell, tuple(a.tail_zs), device=a.device, out=a.out)
+    main(a.cell, tuple(a.tail_zs), device=a.device, out=a.out,
+         draw_seeds=tuple(a.draw_seeds),
+         reround_attempts=a.reround_attempts)

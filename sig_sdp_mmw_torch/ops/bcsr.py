@@ -905,6 +905,73 @@ class BcsrOperands(TensorFields):
         return self.w_edge.shape[0]
 
 
+def _gram_maps_np(ebr, eslot, erloc, ecloc, maxblk: int, Br: int, Bc: int):
+    """The edge-level Gram maps ``(g_src, g_dst)`` [maxblk, max_e] int32 of
+    the numpy build from the entry maps of ``_bcsr_arrays_np`` (entry order
+    = the CSR's sorted order; ``g_dst`` points unused places at the sink
+    ``nnz``)."""
+    nnz = eslot.size
+    src_pos = ((ebr * Br + erloc) * Bc + ecloc).astype(np.int64)
+    counts_s = np.bincount(eslot, minlength=maxblk)
+    max_e = max(int(counts_s.max(initial=0)), 1)
+    g_src = np.zeros((maxblk, max_e), np.int32)
+    g_dst = np.full((maxblk, max_e), nnz, np.int32)  # sink by default
+    order = np.argsort(eslot, kind="stable")
+    within = np.arange(nnz) - np.concatenate(
+        ([0], np.cumsum(counts_s)))[eslot[order]]
+    g_src[eslot[order], within] = src_pos[order]
+    g_dst[eslot[order], within] = np.arange(nnz)[order]
+    return g_src, g_dst
+
+
+def _sym_weights_np(St) -> np.ndarray:
+    """Symmetrization weights (1 one-way, 0.5 bidirectional) float32 [nnz],
+    aligned with the sorted CSR ``St``'s entry order."""
+    P = St.copy()
+    P.data = np.ones_like(P.data)
+    B2 = P.multiply(P.transpose()).tocsr()
+    Wm = (P - 0.5 * B2).tocsr()
+    Wm.sort_indices()
+    if not (np.array_equal(Wm.indices, St.indices)
+            and np.array_equal(Wm.indptr, St.indptr)):
+        raise AssertionError("weight/value edge orders diverged")
+    return Wm.data.astype(np.float32)
+
+
+def _q_layout_np(Q_csr, Br: int, Bc: int, nr: int):
+    """The association edges' block layout on ``nr`` padded rows:
+    ``(q_bcols [Kbr, maxblkQ], q_pos [2E], q_eidx [2E])`` int32 (the
+    blocks that hold an edge, each edge's flat position in them, and its
+    index in the upper-triangle edge order)."""
+    import scipy.sparse
+
+    Kbr, Kbc = nr // Br, nr // Bc
+    Qu = scipy.sparse.triu(Q_csr.tocsr(), k=1).tocoo()
+    E = Qu.nnz
+    ii = np.concatenate([Qu.row, Qu.col]).astype(np.int64)
+    jj = np.concatenate([Qu.col, Qu.row]).astype(np.int64)
+    ee = np.concatenate([np.arange(E), np.arange(E)]).astype(np.int32)
+
+    bi, bj = ii // Br, jj // Bc
+    blk_id = bi * Kbc + bj
+    uniq = np.unique(blk_id)
+    ubr, ubc = uniq // Kbc, uniq % Kbc
+    counts = np.bincount(ubr, minlength=Kbr)
+    maxblkQ = max(int(counts.max(initial=0)), 1)
+    q_bcols = np.zeros((Kbr, maxblkQ), np.int32)
+    starts = np.zeros(Kbr + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    order = np.argsort(ubr, kind="stable")
+    slots_of_uniq = np.empty(uniq.size, np.int64)
+    slots_of_uniq[order] = np.arange(uniq.size) - starts[ubr[order]]
+    q_bcols[ubr, slots_of_uniq] = ubc
+
+    slot_of_edge = slots_of_uniq[np.searchsorted(uniq, blk_id)]
+    q_pos = (((bi * Br + ii % Br) * maxblkQ + slot_of_edge) * Bc
+             + jj % Bc).astype(np.int32)
+    return q_bcols, q_pos, ee
+
+
 def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
                              dtype=torch.float32,
                              store_transpose: bool = False,
@@ -923,8 +990,6 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
     the block arrays, Gram maps and symmetrization weights come from the
     native packer, which must build: it raises otherwise.
     """
-    import scipy.sparse
-
     from sig_sdp_mmw_torch.core.ell import build_st_csr
 
     Br, Bc = _block_pair(block)
@@ -938,11 +1003,8 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
             raise ValueError(f"pad_rows_to must be a multiple of {lcm} "
                              f">= {nr}, got {pad_rows_to}")
         nr = pad_rows_to
-    Kbr = nr // Br
-    Kbc = nr // Bc
-    nnz = St.nnz
     StT = St.transpose().tocsr()
-    if nnz > _NATIVE_PACK_MIN_NNZ and dtype in _KERNEL_BLOCK_DTYPES:
+    if St.nnz > _NATIVE_PACK_MIN_NNZ and dtype in _KERNEL_BLOCK_DTYPES:
         from sig_sdp_mmw_torch.native.builder import (bcsr_gram_maps_native,
                                                       bcsr_pack_native,
                                                       bcsr_sym_weights_native)
@@ -964,31 +1026,11 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
             St, (Br, Bc), pad_rows_to=nr, dtype=np.float32,
             return_entry_maps=True)
         maxblk = s_bcols.shape[1]
-
-        # Edge-level Gram maps (entry order = St COO order = CSR sorted).
-        src_pos = ((ebr * Br + erloc) * Bc + ecloc).astype(np.int64)
-        counts_s = np.bincount(eslot, minlength=maxblk)
-        max_e = max(int(counts_s.max(initial=0)), 1)
-        g_src = np.zeros((maxblk, max_e), np.int32)
-        g_dst = np.full((maxblk, max_e), nnz, np.int32)  # sink by default
-        order = np.argsort(eslot, kind="stable")
-        within = np.arange(nnz) - np.concatenate(
-            ([0], np.cumsum(counts_s)))[eslot[order]]
-        g_src[eslot[order], within] = src_pos[order]
-        g_dst[eslot[order], within] = np.arange(nnz)[order]
+        g_src, g_dst = _gram_maps_np(ebr, eslot, erloc, ecloc, maxblk, Br,
+                                     Bc)
         s_pos = (((ebr * Br + erloc) * maxblk + eslot) * Bc
                  + ecloc).astype(np.int32)
-
-        # Symmetrization weights, aligned with St's CSR entry order.
-        P = St.copy()
-        P.data = np.ones_like(P.data)
-        B2 = P.multiply(P.transpose()).tocsr()
-        Wm = (P - 0.5 * B2).tocsr()
-        Wm.sort_indices()
-        if not (np.array_equal(Wm.indices, St.indices)
-                and np.array_equal(Wm.indptr, St.indptr)):
-            raise AssertionError("weight/value edge orders diverged")
-        w_edge = Wm.data.astype(np.float32)
+        w_edge = _sym_weights_np(St)
 
         s_blocks = BlockEll(bcols=torch.from_numpy(s_bcols),
                             blocks=_cast_f32(s_vals_np, dtype, "cpu"),
@@ -1004,30 +1046,7 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
                                  nrows=nr)
             del st_vals_np
 
-    # Association edges -> block scatter layout.
-    Qu = scipy.sparse.triu(Q_csr.tocsr(), k=1).tocoo()
-    E = Qu.nnz
-    ii = np.concatenate([Qu.row, Qu.col]).astype(np.int64)
-    jj = np.concatenate([Qu.col, Qu.row]).astype(np.int64)
-    ee = np.concatenate([np.arange(E), np.arange(E)]).astype(np.int64)
-
-    bi, bj = ii // Br, jj // Bc
-    blk_id = bi * Kbc + bj
-    uniq = np.unique(blk_id)
-    ubr, ubc = uniq // Kbc, uniq % Kbc
-    counts = np.bincount(ubr, minlength=Kbr)
-    maxblkQ = max(int(counts.max(initial=0)), 1)
-    q_bcols = np.zeros((Kbr, maxblkQ), np.int32)
-    starts = np.zeros(Kbr + 1, np.int64)
-    np.cumsum(counts, out=starts[1:])
-    order = np.argsort(ubr, kind="stable")
-    slots_of_uniq = np.empty(uniq.size, np.int64)
-    slots_of_uniq[order] = np.arange(uniq.size) - starts[ubr[order]]
-    q_bcols[ubr, slots_of_uniq] = ubc
-
-    slot_of_edge = slots_of_uniq[np.searchsorted(uniq, blk_id)]
-    q_pos = (((bi * Br + ii % Br) * maxblkQ + slot_of_edge) * Bc
-             + jj % Bc).astype(np.int32)
+    q_bcols, q_pos, ee = _q_layout_np(Q_csr, Br, Bc, nr)
 
     s_flat = st_flat = None
     if flat_group:
@@ -1042,7 +1061,7 @@ def bcsr_operands_from_state(S_csr, Q_csr, block=(8, 128),
         w_edge=_cast_f32(w_edge, weights_dtype, "cpu"),
         s_pos=torch.from_numpy(s_pos), q_bcols=torch.from_numpy(q_bcols),
         q_pos=torch.from_numpy(q_pos),
-        q_eidx=torch.from_numpy(ee.astype(np.int32)),
+        q_eidx=torch.from_numpy(ee),
         s_flat=s_flat, st_flat=st_flat).to(device)
 
 

@@ -132,6 +132,12 @@ def test_port_imports_no_jax():
             " sig_sdp_mmw_torch.experiments.conv_probe,"
             " sig_sdp_mmw_torch.experiments.bler_tail_fix,"
             " sig_sdp_mmw_torch.experiments.bler_tail_sweep,"
+            " sig_sdp_mmw_torch.experiments.plateau_study,"
+            " sig_sdp_mmw_torch.experiments.million_z19_probe,"
+            " sig_sdp_mmw_torch.experiments.reorder_bench,"
+            " sig_sdp_mmw_torch.experiments.profile_bcsr_build,"
+            " sig_sdp_mmw_torch.experiments.million_link,"
+            " sig_sdp_mmw_torch.experiments.perf_sweep,"
             " port_studies.oracle_z_pair, port_studies.oracle_z_devices,"
             " port_studies.oracle_z_eigh,"
             " sig_sdp_mmw_torch.utils.stats, sig_sdp_mmw_torch.utils.logging,"
