@@ -1,0 +1,9 @@
+"""mmw.ms_per_it.schedule: milliseconds per iteration of the dense
+solver, its synchronised solve spans over their iterations."""
+
+from portbench.readers import mean, spans
+
+
+def read(rec):
+    m = mean(spans(rec, "pb.solve"))
+    return None if m is None else 1e3 * m / rec["counters"]["nit"]
