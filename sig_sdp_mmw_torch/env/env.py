@@ -30,6 +30,7 @@ import torch
 from sig_sdp_mmw_torch.core.problem import SigState, _round_up, state_from_arrays
 from sig_sdp_mmw_torch.env import phy
 from sig_sdp_mmw_torch.utils.draws import TorchDraws
+from sig_sdp_mmw_torch.utils.profiling import span
 from sig_sdp_mmw_torch.utils.tensors import resolve_device
 
 
@@ -258,11 +259,13 @@ class WirelessEnv:
         return r if real else threshold_rxpr(r, self.params)
 
     def generate_state(self, real: bool = False) -> SigState:
-        S, Q, h_max, _ = state_arrays_from_rxpr(self.rxpr(real), self.params)
-        pad = (self.pad_to if self.pad_to is not None
-               else _round_up(self.n_sta, 8))
-        return state_from_arrays(S, Q, h_max, pad_to=pad, dtype=self.dtype,
-                                 device=self.device)
+        with span("env.state", K=self.n_sta):
+            S, Q, h_max, _ = state_arrays_from_rxpr(self.rxpr(real),
+                                                    self.params)
+            pad = (self.pad_to if self.pad_to is not None
+                   else _round_up(self.n_sta, 8))
+            return state_from_arrays(S, Q, h_max, pad_to=pad,
+                                     dtype=self.dtype, device=self.device)
 
     # Reference name (``env.py:168``).
     def generate_S_Q_hmax(self, real: bool = False) -> SigState:

@@ -18,6 +18,15 @@ state, as a Python loop over tensors on the state's device:
 The loop reads no tensor back to the host, so it never waits for the card
 on purpose (the gap log's small ``eigvalsh`` may).
 
+Spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`, recorded only while
+a profiler runs): ``mmw.solve`` around a solve, with its
+:func:`solve_record`; inside it, each iteration's ``mmw.dual``,
+``mmw.loss``, ``mmw.expm`` (the sketch and the Lanczos exponential) and
+``mmw.primal`` (the normalised Gram), then ``mmw.factor`` (the bound
+and the factorisation).  They bracket the
+phases of :meth:`MMW.run_with_state_profiled`: ``mmw_dual``, ``mmw_loss``,
+``mmw_expm`` (``mmw.expm`` and ``mmw.primal``) and ``mmw_xavg``.
+
 Constraint system (``sdp_solver.py:153-161``):
   A_D: diag(X) = 1;  A_F: X_ij <= -1/(Z-1) on associated pairs;
   A_H: row-sums of S̃∘X bounded by the interference budget.
@@ -26,6 +35,7 @@ Constraint system (``sdp_solver.py:153-161``):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -39,6 +49,7 @@ from sig_sdp_mmw_torch.ops.expm import lanczos_expm_multiply
 from sig_sdp_mmw_torch.ops.lanczos import lanczos_extreme_eigs
 from sig_sdp_mmw_torch.ops.rsvd import randomized_symmetric_lowrank
 from sig_sdp_mmw_torch.utils.draws import TorchDraws
+from sig_sdp_mmw_torch.utils.profiling import span
 from sig_sdp_mmw_torch.utils.stats import StatsObject
 from sig_sdp_mmw_torch.utils.tensors import TensorFields
 
@@ -137,6 +148,32 @@ def _loss_matrix(YD, YF, YH, op: MMWOperands, Z, K, Kp):
     return _loss_rows(YD, YF, YF.T, torch.sum(YF), YH, op, op.St.T, Z, K, Kp)
 
 
+def solve_record(Z, K: int, D_pad: int, rank_pad: int, draws,
+                 nit: int) -> dict:
+    """What a solve ran as: the attributes of its ``*.solve`` span and the
+    solver objects' ``last_solve`` (``stream``: the draws' stream)."""
+    return dict(Z=Z, K=K, D_pad=D_pad, rank_pad=rank_pad,
+                stream=getattr(draws, "stream", None), nit=nit)
+
+
+def solve_span(name: str):
+    """Decorator: the solve runs inside span ``name``, whose attributes
+    are its :func:`solve_record` (``record=``: that record, where the
+    caller has built it)."""
+    def wrap(solve):
+        @functools.wraps(solve)
+        def spanned(state, Z, *, nit, D_pad, rank_pad, draws, record=None,
+                    **kw):
+            if record is None:
+                record = solve_record(Z, state.K, D_pad, rank_pad, draws,
+                                      nit)
+            with span(name, **record):
+                return solve(state, Z, nit=nit, D_pad=D_pad,
+                             rank_pad=rank_pad, draws=draws, **kw)
+        return spanned
+    return wrap
+
+
 def mmw_default_lanczos_m(eta: float, nit: int) -> int:
     """Krylov dimension default for the MMW Gibbs sketch.
 
@@ -193,6 +230,7 @@ class _RowShardedMatrix:
         return self.graph.gather_rows(self.local @ M, self.shape[0])
 
 
+@solve_span("mmw.solve")
 def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
               rank_radio: int = 2, D_pad: int, rank_pad: int, draws,
               lanczos_m: Optional[int] = None, log_gap: bool = False,
@@ -274,11 +312,12 @@ def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
         # ---- averaging (pre-update) ---------------------------------------
         X_avgd = X_avgd + X_offdi + _diag_rows(X_mdiag[rows], rows, Kp)
         if log_gap:
-            YaD, YaF, YaFt, YaH = YaD + YD, YaF + YF, YaFt + YFt, YaH + YH
+            YaD, YaF, YaFt, YaH = (YaD + YD, YaF + YF, YaFt + YFt,
+                                   YaH + YH)
             n = float(i + 1)
             L_avg = _loss_rows(YaD / n, YaF / n, YaFt / n,
-                               graph.sum_over(torch.sum(YaF / n)), YaH / n,
-                               op, StT, Zf, K, Kp, rows)
+                               graph.sum_over(torch.sum(YaF / n)),
+                               YaH / n, op, StT, Zf, K, Kp, rows)
             lam_min, _ = lanczos_extreme_eigs(
                 lambda V: graph.gather_rows(L_avg @ V, Kp),
                 draws.gap(i, (Kp, 1), dtype), m=gap_lanczos_m)
@@ -286,28 +325,33 @@ def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
             gap[i, 1] = lam_min * K
 
         # ---- dual step ----------------------------------------------------
-        eD, eF, eH = _violations(X_mdiag, X_offdi, op, Zf, K, rows)
-        e_accu_D = e_accu_D + eta * eD
-        e_accu_F = e_accu_F + eta * torch.where(mF_sym, eF, 0.0)
-        e_accu_H = e_accu_H + eta * graph.gather_rows(eH, Kp)
-        YD, YF, YFt, sYF, YH = softmax(e_accu_D, e_accu_F, e_accu_H)
+        with span("mmw.dual"):
+            eD, eF, eH = _violations(X_mdiag, X_offdi, op, Zf, K, rows)
+            e_accu_D = e_accu_D + eta * eD
+            e_accu_F = e_accu_F + eta * torch.where(mF_sym, eF, 0.0)
+            e_accu_H = e_accu_H + eta * graph.gather_rows(eH, Kp)
+            YD, YF, YFt, sYF, YH = softmax(e_accu_D, e_accu_F, e_accu_H)
 
         # ---- loss accumulation --------------------------------------------
-        L_accu = L_accu - eta * _loss_rows(YD, YF, YFt, sYF, YH, op, StT, Zf,
-                                           K, Kp, rows)
+        with span("mmw.loss"):
+            L_accu = L_accu - eta * _loss_rows(YD, YF, YFt, sYF, YH, op, StT,
+                                               Zf, K, Kp, rows)
 
         # ---- primal via sketched expm -------------------------------------
-        G = _sketch(draws, i, op, D_pad, D_act, dtype)
-        X_half, _ = lanczos_expm_multiply(
-            lambda V: 0.5 * graph.gather_rows(L_accu @ V, Kp), G,
-            m=lanczos_m, small_method="taylor_ss", norm_bound=eta * nit)
-        X_mdiag, X_offdi = _primal(op, X_half, K, rows)
+        with span("mmw.expm"):
+            G = _sketch(draws, i, op, D_pad, D_act, dtype)
+            X_half, _ = lanczos_expm_multiply(
+                lambda V: 0.5 * graph.gather_rows(L_accu @ V, Kp), G,
+                m=lanczos_m, small_method="taylor_ss", norm_bound=eta * nit)
+        with span("mmw.primal"):
+            X_mdiag, X_offdi = _primal(op, X_half, K, rows)
 
     # ---- final averaged primal + factorization ----------------------------
-    X_avgd = X_avgd / nit
-    ub_final = local_ub(X_avgd)
-    X_half = _factor(_RowShardedMatrix(X_avgd, graph, Kp), op, Zh, K,
-                     rank_radio, rank_pad, draws)
+    with span("mmw.factor"):
+        X_avgd = X_avgd / nit
+        ub_final = local_ub(X_avgd)
+        X_half = _factor(_RowShardedMatrix(X_avgd, graph, Kp), op, Zh, K,
+                         rank_radio, rank_pad, draws)
     return MMWOutput(X_half=X_half, ub_final=ub_final, gap_log=gap,
                      X_avgd=graph.gather_rows(X_avgd, Kp))
 
@@ -367,6 +411,8 @@ class MMW(StatsObject, SDPSolverBase):
         self.lanczos_m = lanczos_m
         self.seed = seed
         self._ncall = 0
+        # What the last solve ran as (:func:`solve_record`).
+        self.last_solve = None
 
     def _draws(self, state: SigState) -> TorchDraws:
         self._ncall += 1
@@ -387,10 +433,14 @@ class MMW(StatsObject, SDPSolverBase):
             D_pad, rank_pad = self._d_pad_for(state, Z)
         else:
             rank_pad = D_pad
+        draws = self._draws(state)
+        self.last_solve = solve_record(float(Z), state.K, D_pad, rank_pad,
+                                       draws, self.nit)
         out = mmw_solve(state, float(Z), nit=self.nit, eta=self.eta,
                         rank_radio=self.rank_radio, D_pad=D_pad,
-                        rank_pad=rank_pad, draws=self._draws(state),
-                        lanczos_m=self.lanczos_m, log_gap=self.LOG_GAP)
+                        rank_pad=rank_pad, draws=draws,
+                        lanczos_m=self.lanczos_m, log_gap=self.LOG_GAP,
+                        record=self.last_solve)
         tim = self._get_tim(tic, sync=out.X_half)
         self._add_np_log("mmw_all_it", bs_iteration,
                          np.array([Z, state.K, tim]))

@@ -24,6 +24,17 @@ block operands (:func:`sig_sdp_mmw_torch.ops.bcsr.shard_rows`) and of the
 O(nnz) accumulators; every operator apply is the product on its rows
 followed by one all-gather, and the O(K) vectors and [Kp, D] blocks stay
 replicated, bit for bit the same on every rank.
+
+Spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`, recorded only while
+a profiler runs): ``mmw_ell.solve`` around a call, with its
+:func:`sig_sdp_mmw_torch.models.mmw.solve_record`; inside it, each
+iteration's ``mmw_ell.dual``, ``mmw_ell.loss``, ``mmw_ell.sketch``,
+``mmw_ell.expm``, ``mmw_ell.primal`` and ``mmw_ell.gram``, then
+``mmw_ell.factor`` (the bound and the factorisation; timed on a card).
+With block operands each product of a block operand is a
+``bcsr.spmm`` span, its ``operand`` named as
+``portbench/reference/roofline.solve_products`` names it (``St``, ``StT``,
+``Q``) and its width ``D``.
 """
 
 from __future__ import annotations
@@ -37,11 +48,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sig_sdp_mmw_torch.models.mmw import mmw_default_lanczos_m
+from sig_sdp_mmw_torch.models.mmw import (mmw_default_lanczos_m,
+                                          solve_record, solve_span)
 from sig_sdp_mmw_torch.ops.ell import ell_edge_gather_dot, ell_spmm
 from sig_sdp_mmw_torch.ops.expm import lanczos_expm_multiply
 from sig_sdp_mmw_torch.ops.lanczos import lanczos_extreme_eigs
 from sig_sdp_mmw_torch.utils.draws import TorchDraws
+from sig_sdp_mmw_torch.utils.profiling import span
 from sig_sdp_mmw_torch.utils.stats import StatsObject
 from sig_sdp_mmw_torch.utils.tensors import TensorFields
 
@@ -75,6 +88,7 @@ def _masked_max(*pairs):
                                   for v, m in pairs]))
 
 
+@solve_span("mmw_ell.solve")
 def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
                   D_pad: int, rank_pad: int, draws,
                   lanczos_m: Optional[int] = None, log_gap: bool = False,
@@ -122,7 +136,6 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     log are updated in place.
     """
     from sig_sdp_mmw_torch.parallel.mesh import MeshAxis
-    from sig_sdp_mmw_torch.utils.profiling import annotate
 
     Kp = ell.Kp
     K = ell.K
@@ -136,7 +149,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     Zf = torch.tensor(float(Z), dtype=dtype, device=device)
     mask, a_mask = ell.mask, ell.a_mask
     # Named spans of the local products when the operator is sharded.
-    span = annotate if graph is not None else (
+    local_span = span if graph is not None else (
         lambda name: contextlib.nullcontext())
     graph = graph if graph is not None else MeshAxis()
 
@@ -194,30 +207,36 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             return flat.reshape(nloc, Brow, maxblkQ, Bcol)
 
         def q_loc(blocks, Vp):
-            return bcsr_spmm(BlockEll(bcols=bcsr.q_bcols, blocks=blocks,
-                                      nrows=nloc * Brow, ncols=nrows), Vp)
+            with span("bcsr.spmm", operand="Q", D=Vp.shape[1]):
+                return bcsr_spmm(BlockEll(bcols=bcsr.q_bcols, blocks=blocks,
+                                          nrows=nloc * Brow, ncols=nrows), Vp)
 
         if bcsr.s_flat is not None:
             def s_loc(Vp):
-                return bsr_spmm_flat(bcsr.s_flat, Vp)
+                with span("bcsr.spmm", operand="St", D=Vp.shape[1]):
+                    return bsr_spmm_flat(bcsr.s_flat, Vp)
 
             def st_loc(Vp):
-                return bsr_spmm_flat(bcsr.st_flat, Vp)
+                with span("bcsr.spmm", operand="StT", D=Vp.shape[1]):
+                    return bsr_spmm_flat(bcsr.st_flat, Vp)
         else:
             def s_loc(Vp):
-                return bcsr_spmm(sb, Vp, row_chunk=spmm_row_chunk)
+                with span("bcsr.spmm", operand="St", D=Vp.shape[1]):
+                    return bcsr_spmm(sb, Vp, row_chunk=spmm_row_chunk)
 
             if bcsr.st_blocks is not None:
                 def st_loc(Vp):
-                    return bcsr_spmm(bcsr.st_blocks, Vp,
-                                     row_chunk=spmm_row_chunk)
+                    with span("bcsr.spmm", operand="StT", D=Vp.shape[1]):
+                        return bcsr_spmm(bcsr.st_blocks, Vp,
+                                         row_chunk=spmm_row_chunk)
             else:
                 # S̃ᵀ not stored: scatter through S̃ (each rank's rows add
                 # into every column block).
                 def st_loc(Vp):
-                    return graph.sum_over(bcsr_spmm_transpose(
-                        sb.bcols, sb.blocks, Vp[rows],
-                        row_chunk=spmm_row_chunk, ncols=nrows))[rows]
+                    with span("bcsr.spmm", operand="StT", D=Vp.shape[1]):
+                        return graph.sum_over(bcsr_spmm_transpose(
+                            sb.bcols, sb.blocks, Vp[rows],
+                            row_chunk=spmm_row_chunk, ncols=nrows))[rows]
     else:
         def q_vals(edge_vals):
             return edge_vals
@@ -285,7 +304,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
 
         def apply(V):
             Vp = padV(V)
-            with span("graph.local_product"):
+            with local_span("graph.local_product"):
                 t = dl * Vp[rows]
                 t = t + q_loc(qv, Vp)
                 t = t + hl * s_loc(Vp)
@@ -346,7 +365,8 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             u = _masked_max((eD, mask), (eF, a_mask), (eH, mask))
             # LB = K * lambda_min of the averaged loss, through the same
             # implicit operator the solve uses.
-            d_bar, f_bar, h_bar = loss_pieces(ya_D / n, ya_F / n, ya_H / n)
+            d_bar, f_bar, h_bar = loss_pieces(ya_D / n, ya_F / n,
+                                              ya_H / n)
             lam_min, _ = lanczos_extreme_eigs(
                 L_operator(d_bar, q_vals(f_bar), h_bar),
                 draws.gap(i, (Kp, 1), dtype), m=gap_lanczos_m)
@@ -354,41 +374,46 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             c["gap"][i, 1] = lam_min * K
 
         # Dual.
-        eD, eF, eH = violations(c["X_mdiag"], c["xF"], c["xH"])
-        eaD = c["eaD"] + eta * eD
-        eaF = c["eaF"] + eta * torch.where(a_mask, eF, 0.0)
-        eaH = c["eaH"] + eta * eH
-        YD, YF, YH = masked_softmax(eaD, eaF, eaH)
+        with span("mmw_ell.dual"):
+            eD, eF, eH = violations(c["X_mdiag"], c["xF"], c["xH"])
+            eaD = c["eaD"] + eta * eD
+            eaF = c["eaF"] + eta * torch.where(a_mask, eF, 0.0)
+            eaH = c["eaH"] + eta * eH
+            YD, YF, YH = masked_softmax(eaD, eaF, eaH)
 
         # Loss accumulation on the implicit structure.
-        ld_d, lf_f, lh_h = loss_pieces(YD, YF, YH)
-        d_accu = c["d_accu"] - eta * ld_d
-        f_accu = c["f_accu"] - eta * lf_f
-        hrow = c["hrow"] - eta * lh_h
-        L_apply = L_operator(d_accu, q_vals(f_accu), hrow)
+        with span("mmw_ell.loss"):
+            ld_d, lf_f, lh_h = loss_pieces(YD, YF, YH)
+            d_accu = c["d_accu"] - eta * ld_d
+            f_accu = c["f_accu"] - eta * lf_f
+            hrow = c["hrow"] - eta * lh_h
+            L_apply = L_operator(d_accu, q_vals(f_accu), hrow)
 
         # Primal: Gibbs-state sketch.
-        G = draws.sketch(i, (Kp, D_pad), dtype)
-        G = torch.where(col_mask & mask[:, None], G, 0.0)
-        rn = torch.linalg.norm(G, dim=1, keepdim=True)
-        G = torch.where(rn > 0, G / torch.where(rn > 0, rn, 1.0), 0.0)
+        with span("mmw_ell.sketch"):
+            G = draws.sketch(i, (Kp, D_pad), dtype)
+            G = torch.where(col_mask & mask[:, None], G, 0.0)
+            rn = torch.linalg.norm(G, dim=1, keepdim=True)
+            G = torch.where(rn > 0, G / torch.where(rn > 0, rn, 1.0), 0.0)
 
-        X_half, _ = lanczos_expm_multiply(
-            lambda V: 0.5 * L_apply(V), G,
-            m=lanczos_m, reorth=reorth, small_method="taylor_ss",
-            norm_bound=eta * nit)
+        with span("mmw_ell.expm"):
+            X_half, _ = lanczos_expm_multiply(
+                lambda V: 0.5 * L_apply(V), G,
+                m=lanczos_m, reorth=reorth, small_method="taylor_ss",
+                norm_bound=eta * nit)
 
-        md = torch.sum(X_half * X_half, dim=1)
-        X_trace = torch.sum(md) / K
-        inv_tr = 1.0 / X_trace
-        X_mdiag = torch.where(mask, md * inv_tr, 0.0)
-        xF = torch.where(a_mask,
-                         ell_edge_gather_dot(ell.a_i, ell.a_j, X_half) * inv_tr,
-                         0.0)
-        Xp = padV(X_half)
-        with span("graph.local_product"):
-            xH = torch.sum(Xp[rows] * s_loc(Xp), dim=1) * inv_tr
-        xH = gather(xH)
+        with span("mmw_ell.primal"):
+            md = torch.sum(X_half * X_half, dim=1)
+            X_trace = torch.sum(md) / K
+            inv_tr = 1.0 / X_trace
+            X_mdiag = torch.where(mask, md * inv_tr, 0.0)
+            xF = torch.where(
+                a_mask,
+                ell_edge_gather_dot(ell.a_i, ell.a_j, X_half) * inv_tr, 0.0)
+            Xp = padV(X_half)
+            with local_span("graph.local_product"):
+                xH = torch.sum(Xp[rows] * s_loc(Xp), dim=1) * inv_tr
+            xH = gather(xH)
 
         new = dict(eaD=eaD, eaF=eaF, eaH=eaH, d_accu=d_accu, f_accu=f_accu,
                    hrow=hrow, X_mdiag=X_mdiag, xF=xF, xH=xH,
@@ -403,99 +428,107 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         if use_bcsr:
             key = "avg_blocks" if block_gram else "avg_edge"
             new[key] = c[key]
-        if use_bcsr and i < nit - 1:
-            Xr = Xp[rows].reshape(nloc, Brow, D_pad)
-            Xc = Xp.reshape(Kbc, Bcol, D_pad)
-            if block_gram:
-                R = Xc[sb.bcols].reshape(nloc, maxblk * Bcol, D_pad)
-                Gb = torch.bmm(Xr, R.transpose(1, 2)).to(torch.float32)
-                new["avg_blocks"].addcmul_(Gb, inv_tr.to(torch.float32))
-            else:
-                bcsr_edge_gram_accum(sb.bcols, Xr, Xc, bcsr.g_src,
-                                     bcsr.g_dst, new["avg_edge"], inv_tr)
-        elif not use_bcsr:
-            new["s_edge"] = torch.where(
-                ell.s_vals[rows] != 0,
-                _edge_dots(ell.s_cols[rows], X_half[rows], X_half, inv_tr),
-                0.0)
-            new["st_edge"] = torch.where(
-                ell.st_vals[rows] != 0,
-                _edge_dots(ell.st_cols[rows], X_half[rows], X_half, inv_tr),
-                0.0)
-            new["avg_s"] = c["avg_s"] + c["s_edge"]
-            new["avg_st"] = c["avg_st"] + c["st_edge"]
+        with span("mmw_ell.gram"):
+            if use_bcsr and i < nit - 1:
+                Xr = Xp[rows].reshape(nloc, Brow, D_pad)
+                Xc = Xp.reshape(Kbc, Bcol, D_pad)
+                if block_gram:
+                    R = Xc[sb.bcols].reshape(nloc, maxblk * Bcol, D_pad)
+                    Gb = torch.bmm(Xr, R.transpose(1, 2)).to(torch.float32)
+                    new["avg_blocks"].addcmul_(Gb, inv_tr.to(torch.float32))
+                else:
+                    bcsr_edge_gram_accum(sb.bcols, Xr, Xc, bcsr.g_src,
+                                         bcsr.g_dst, new["avg_edge"], inv_tr)
+            elif not use_bcsr:
+                new["s_edge"] = torch.where(
+                    ell.s_vals[rows] != 0,
+                    _edge_dots(ell.s_cols[rows], X_half[rows], X_half,
+                               inv_tr), 0.0)
+                new["st_edge"] = torch.where(
+                    ell.st_vals[rows] != 0,
+                    _edge_dots(ell.st_cols[rows], X_half[rows], X_half,
+                               inv_tr), 0.0)
+                new["avg_s"] = c["avg_s"] + c["s_edge"]
+                new["avg_st"] = c["avg_st"] + c["st_edge"]
         c = new
     if return_carry:
         return c
 
     # ---- final UB + operator-based factorization ---------------------------
-    avg_mdiag = c["avg_mdiag"] / nit
-    avg_F = c["avg_F"] / nit
-    ub_final = mmw_ell_ub_from_carry(ell, Z, c, nit)
+    with span("mmw_ell.factor", timed=True):
+        avg_mdiag = c["avg_mdiag"] / nit
+        avg_F = c["avg_F"] / nit
+        ub_final = mmw_ell_ub_from_carry(ell, Z, c, nit)
 
-    if not factorize:
-        return MMWEllOutput(
-            X_half=torch.zeros((Kp, rank_pad), dtype=dtype, device=device),
-            ub_final=ub_final, gap_log=c["gap"])
+        if not factorize:
+            return MMWEllOutput(
+                X_half=torch.zeros((Kp, rank_pad), dtype=dtype, device=device),
+                ub_final=ub_final, gap_log=c["gap"])
 
-    if use_bcsr:
-        nslots = nloc * maxblk * Brow * Bcol
-        if block_gram:
-            # Masking by the scattered symmetrization weights (zero off the
-            # pattern) both symmetrizes and drops non-pattern positions.
-            wflat = torch.zeros(nslots, dtype=torch.float32, device=device)
-            wflat[bcsr.s_pos] = bcsr.w_edge.to(torch.float32)
-            wavg = (c["avg_blocks"].reshape(nloc, Brow, maxblk, Bcol) / nit
-                    * wflat.reshape(nloc, Brow, maxblk, Bcol)).to(q_dtype)
+        if use_bcsr:
+            nslots = nloc * maxblk * Brow * Bcol
+            if block_gram:
+                # Masking by the scattered symmetrization weights (zero off
+                # the pattern) both symmetrizes and drops non-pattern
+                # positions.
+                wflat = torch.zeros(nslots, dtype=torch.float32, device=device)
+                wflat[bcsr.s_pos] = bcsr.w_edge.to(torch.float32)
+                wavg = (c["avg_blocks"].reshape(nloc, Brow, maxblk, Bcol) / nit
+                        * wflat.reshape(nloc, Brow, maxblk, Bcol)).to(q_dtype)
+            else:
+                avg_vals = ((c["avg_edge"][:nnz_s] / nit)
+                            * bcsr.w_edge.to(dtype))
+                flat = torch.zeros(nslots, dtype=q_dtype, device=device)
+                flat[bcsr.s_pos] = avg_vals.to(q_dtype)
+                wavg = flat.reshape(nloc, Brow, maxblk, Bcol)
+            q_avg = q_vals(avg_F)
+            avg_bell = BlockEll(bcols=sb.bcols, blocks=wavg, nrows=nloc * Brow,
+                                ncols=nrows)
+
+            def X_avg_apply(V):
+                Vp = padV(V)
+                with local_span("graph.local_product"):
+                    t = loc(avg_mdiag)[:, None] * Vp[rows]
+                    t = t + q_loc(q_avg, Vp)
+                    with span("bcsr.spmm", operand="St", D=Vp.shape[1]):
+                        t = t + bcsr_spmm(avg_bell, Vp,
+                                          row_chunk=spmm_row_chunk)
+                    with span("bcsr.spmm", operand="StT", D=Vp.shape[1]):
+                        tt = bcsr_spmm_transpose(sb.bcols, wavg, Vp[rows],
+                                                 row_chunk=spmm_row_chunk,
+                                                 ncols=nrows)
+                # Each rank's rows add into every column block of the
+                # transpose.
+                return gather(t) + graph.sum_over(tt)[:Kp]
         else:
-            avg_vals = (c["avg_edge"][:nnz_s] / nit) * bcsr.w_edge.to(dtype)
-            flat = torch.zeros(nslots, dtype=q_dtype, device=device)
-            flat[bcsr.s_pos] = avg_vals.to(q_dtype)
-            wavg = flat.reshape(nloc, Brow, maxblk, Bcol)
-        q_avg = q_vals(avg_F)
-        avg_bell = BlockEll(bcols=sb.bcols, blocks=wavg, nrows=nloc * Brow,
-                            ncols=nrows)
+            avg_s = c["avg_s"] / nit * ell.s_xw[rows]
+            avg_st = c["avg_st"] / nit * ell.st_xw[rows]
 
-        def X_avg_apply(V):
-            Vp = padV(V)
-            with span("graph.local_product"):
-                t = loc(avg_mdiag)[:, None] * Vp[rows]
-                t = t + q_loc(q_avg, Vp)
-                t = t + bcsr_spmm(avg_bell, Vp, row_chunk=spmm_row_chunk)
-                tt = bcsr_spmm_transpose(sb.bcols, wavg, Vp[rows],
-                                         row_chunk=spmm_row_chunk,
-                                         ncols=nrows)
-            # Each rank's rows add into every column block of the transpose.
-            return gather(t) + graph.sum_over(tt)[:Kp]
-    else:
-        avg_s = c["avg_s"] / nit * ell.s_xw[rows]
-        avg_st = c["avg_st"] / nit * ell.st_xw[rows]
+            def X_avg_apply(V):
+                with local_span("graph.local_product"):
+                    t = loc(avg_mdiag)[:, None] * V[rows]
+                    t = t + q_loc(avg_F, V)
+                    t = t + ell_spmm(ell.s_cols[rows], avg_s, V)
+                    t = t + ell_spmm(ell.st_cols[rows], avg_st, V)
+                return gather(t)
 
-        def X_avg_apply(V):
-            with span("graph.local_product"):
-                t = loc(avg_mdiag)[:, None] * V[rows]
-                t = t + q_loc(avg_F, V)
-                t = t + ell_spmm(ell.s_cols[rows], avg_s, V)
-                t = t + ell_spmm(ell.st_cols[rows], avg_st, V)
-            return gather(t)
-
-    # Randomized subspace iteration on the implicit symmetric operator.
-    r_ov = min(rank_pad + 8, Kp)
-    Om = draws.omega((Kp, r_ov), dtype)
-    Qb = torch.linalg.qr(X_avg_apply(Om))[0]
-    for _ in range(rsvd_iters):
-        Qb = torch.linalg.qr(X_avg_apply(X_avg_apply(Qb)))[0]
-    B = Qb.T @ X_avg_apply(Qb)
-    B = 0.5 * (B + B.T)
-    w, Vb = torch.linalg.eigh(B)
-    order = torch.argsort(-torch.abs(w), stable=True)[:rank_pad]
-    w_sel = torch.abs(w[order])
-    rank_act = int(min(K - 1, (float(Z) - 1.0) * rank_radio))
-    keep = (torch.arange(rank_pad, device=device) < rank_act)[None, :]
-    X_half = torch.where(keep, (Qb @ Vb[:, order]) * torch.sqrt(w_sel)[None, :],
-                         0.0)
-    X_half = torch.where(mask[:, None], X_half, 0.0)
-    return MMWEllOutput(X_half=X_half, ub_final=ub_final, gap_log=c["gap"])
+        # Randomized subspace iteration on the implicit symmetric operator.
+        r_ov = min(rank_pad + 8, Kp)
+        Om = draws.omega((Kp, r_ov), dtype)
+        Qb = torch.linalg.qr(X_avg_apply(Om))[0]
+        for _ in range(rsvd_iters):
+            Qb = torch.linalg.qr(X_avg_apply(X_avg_apply(Qb)))[0]
+        B = Qb.T @ X_avg_apply(Qb)
+        B = 0.5 * (B + B.T)
+        w, Vb = torch.linalg.eigh(B)
+        order = torch.argsort(-torch.abs(w), stable=True)[:rank_pad]
+        w_sel = torch.abs(w[order])
+        rank_act = int(min(K - 1, (float(Z) - 1.0) * rank_radio))
+        keep = (torch.arange(rank_pad, device=device) < rank_act)[None, :]
+        X_half = torch.where(
+            keep, (Qb @ Vb[:, order]) * torch.sqrt(w_sel)[None, :], 0.0)
+        X_half = torch.where(mask[:, None], X_half, 0.0)
+        return MMWEllOutput(X_half=X_half, ub_final=ub_final, gap_log=c["gap"])
 
 
 def mmw_ell_ub_from_carry(ell, Z, carry, n) -> torch.Tensor:
@@ -570,6 +603,9 @@ class MMWEll(StatsObject):
         self._pinned_zpad = None   # (weakref(state), Z_pad)
         # One record per rounding call: route, Z_pad, wavefront rounds.
         self.rounding_info = []
+        # What the last solve ran as (:func:`sig_sdp_mmw_torch.models.mmw.
+        # solve_record`): Z, K, D_pad, rank_pad, the draws' stream, nit.
+        self.last_solve = None
 
     @staticmethod
     def _for_state(entry, ell) -> bool:
@@ -638,11 +674,13 @@ class MMWEll(StatsObject):
             bcsr = self._bcsr[1]
         self._ncall += 1
         draws = TorchDraws(self.seed, ell.mask.device, stream=self._ncall)
+        self.last_solve = solve_record(float(Z), ell.K, D_pad, rank_pad,
+                                       draws, self.nit)
         out = mmw_solve_ell(ell, float(Z), nit=self.nit, eta=self.eta,
                             rank_radio=self.rank_radio, D_pad=D_pad,
                             rank_pad=rank_pad, draws=draws,
                             lanczos_m=self.lanczos_m, log_gap=self.log_gap,
-                            bcsr=bcsr)
+                            bcsr=bcsr, record=self.last_solve)
         tim = self._get_tim(tic, sync=out.X_half)
         self._add_np_log("mmw_all_it", bs_iteration,
                          np.array([Z, ell.K, tim]))

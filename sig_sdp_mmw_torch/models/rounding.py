@@ -19,6 +19,10 @@ Port of :mod:`sig_sdp_mmw_tpu.models.rounding` (reference greedy rounding,
 
 :func:`verify_assignment` is the independent numpy checker: ``remainder ==
 0`` from rounding must imply that it passes.
+
+Spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`): ``rounding.round``
+around a rounding (``attempts``, ``rem``), ``rounding.verify`` around the
+checker.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from sig_sdp_mmw_torch.core.problem import SigState
+from sig_sdp_mmw_torch.utils.profiling import span
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -143,8 +148,12 @@ def rounding(Z: int, gX, state: SigState, draws, nattempt: int = 10,
     random draws (``dense_rounding_rv``, ``dense_fill``)."""
     if Z_pad is None:
         Z_pad = _default_z_pad(state)
-    z_vec, rem = _rounding_batch(state, gX, int(Z), draws, Z_pad, nattempt)
-    return z_vec.cpu().numpy()[: state.K], Z, int(rem)
+    with span("rounding.round", Z=Z, attempts=nattempt) as sp:
+        z_vec, rem = _rounding_batch(state, gX, int(Z), draws, Z_pad,
+                                     nattempt)
+        z_host, rem = z_vec.cpu().numpy()[: state.K], int(rem)
+        sp.set(rem=rem)
+    return z_host, Z, rem
 
 
 def rounding_one_attempt(Z: int, gX, state: SigState, draws,
@@ -171,6 +180,11 @@ def verify_assignment(state: SigState, z_vec) -> Tuple[bool, int, int]:
 
     Returns (ok, n_interference_violations, n_association_violations).
     """
+    with span("rounding.verify"):
+        return _verify(state, z_vec)
+
+
+def _verify(state: SigState, z_vec):
     K = state.K
     S = state.S.cpu().numpy().astype(np.float64)[:K, :K].copy()
     Q = state.Q.cpu().numpy().astype(np.float64)[:K, :K]

@@ -38,6 +38,12 @@ ever read while probing a slot that check rejects anyway.  The checkers
 :func:`verify_assignment_ell` and :func:`verify_assignment_csr` count
 association-pair gains exactly.  The dense path's device rounding is
 :mod:`sig_sdp_mmw_torch.models.rounding`.
+
+Spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`): ``rounding_ell.
+round`` around a rounding (its ``info`` record: route, Z_pad, rounds and
+rems; ``attempts`` run and ``rem``), a ``rounding_ell.attempt`` around each
+attempt run on its own (``a``), and ``rounding_ell.verify`` around each
+checker.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from sig_sdp_mmw_torch.utils.profiling import span
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -359,24 +367,27 @@ def _rounding_wavefront_host(ell, gX, Z, draws, Z_pad: int, nattempt: int,
     best = None
     rounds, rems = [], []
     for a in range(nattempt):
-        ad = draws.ell_attempt(a)
-        rv = ad.attempt_rv(Z_pad, gX.shape[1], ell.s_vals.dtype)
-        wf, prefT, state = _wavefront_prep(ell, gX, Z, rv.to(gX.device),
-                                           Z_pad)
-        ran = 0
-        while True:
-            state, r = _wavefront_exec(ell, wf, prefT, state, rounds_per_exec)
-            ran += int(r)
-            if bool(torch.all(state[2])):
-                break
-        rounds.append(ran)
-        slot_of = state[0]
-        rem = int(torch.sum((slot_of < 0) & ell.mask))
-        rems.append(rem)
-        if best is None or rem < best[1]:
-            fill = ad.attempt_fill(ell.Kp, Z).to(slot_of.device)
-            z_vec = torch.where(slot_of >= 0, slot_of, fill)
-            best = (torch.where(ell.mask, z_vec, 0), rem)
+        with span("rounding_ell.attempt", a=a) as sp:
+            ad = draws.ell_attempt(a)
+            rv = ad.attempt_rv(Z_pad, gX.shape[1], ell.s_vals.dtype)
+            wf, prefT, state = _wavefront_prep(ell, gX, Z, rv.to(gX.device),
+                                               Z_pad)
+            ran = 0
+            while True:
+                state, r = _wavefront_exec(ell, wf, prefT, state,
+                                           rounds_per_exec)
+                ran += int(r)
+                if bool(torch.all(state[2])):
+                    break
+            rounds.append(ran)
+            slot_of = state[0]
+            rem = int(torch.sum((slot_of < 0) & ell.mask))
+            rems.append(rem)
+            sp.set(rounds=ran, rem=rem)
+            if best is None or rem < best[1]:
+                fill = ad.attempt_fill(ell.Kp, Z).to(slot_of.device)
+                z_vec = torch.where(slot_of >= 0, slot_of, fill)
+                best = (torch.where(ell.mask, z_vec, 0), rem)
         if rem == 0:
             break
     if info is not None:
@@ -508,25 +519,32 @@ def rounding_ell(Z: int, gX, ell, draws, nattempt: int = 10,
         Z_pad = default_z_pad_ell(ell, Z)
     if batch_attempts is None:
         batch_attempts = ell.Kp <= _BATCH_ATTEMPT_MAX_KP
+    info = {} if info is None else info
     gX = torch.as_tensor(gX, device=ell.mask.device)
     Z = int(Z)
-    if batch_attempts:
-        route = "batch"
-        z_vec, rem = _rounding_batch_ell(ell, gX, Z, draws, Z_pad, nattempt)
-    elif ell.Kp > _WAVEFRONT_MIN_KP:
-        route = "wavefront"
-        z_vec, rem = _rounding_wavefront_host(ell, gX, Z, draws, Z_pad,
-                                              nattempt, info=info)
-    else:
-        route = "sequential"
-        for a in range(nattempt):
-            z_vec, rem = _rounding_single_ell(ell, gX, Z,
-                                              draws.ell_attempt(a), Z_pad)
-            if int(rem) == 0:
-                break
-    if info is not None:
+    with span("rounding_ell.round", Z=Z) as sp:
+        if batch_attempts:
+            route, attempts = "batch", nattempt
+            z_vec, rem = _rounding_batch_ell(ell, gX, Z, draws, Z_pad,
+                                             nattempt)
+        elif ell.Kp > _WAVEFRONT_MIN_KP:
+            route = "wavefront"
+            z_vec, rem = _rounding_wavefront_host(ell, gX, Z, draws, Z_pad,
+                                                  nattempt, info=info)
+            attempts = len(info["rounds"])
+        else:
+            route = "sequential"
+            for attempts in range(1, nattempt + 1):
+                with span("rounding_ell.attempt", a=attempts - 1):
+                    z_vec, rem = _rounding_single_ell(
+                        ell, gX, Z, draws.ell_attempt(attempts - 1), Z_pad)
+                    rem = int(rem)
+                if rem == 0:
+                    break
         info["route"] = route
-    return z_vec.cpu().numpy()[: ell.K], Z, int(rem)
+        z_host, rem = z_vec.cpu().numpy()[: ell.K], int(rem)
+        sp.set(**info, attempts=attempts, rem=rem)
+    return z_host, Z, rem
 
 
 def rounding_native_csr(Z: int, gX: torch.Tensor, S_csr, Q_csr, h_max, draws,
@@ -554,19 +572,24 @@ def rounding_native_csr(Z: int, gX: torch.Tensor, S_csr, Q_csr, h_max, draws,
     user_order = torch.argsort(-norms, stable=True).cpu().numpy()
 
     best = None
-    for a in range(nattempt):
-        rv = draws.rounding_rv(a, int(Z), D, gX.dtype)
-        rn = torch.linalg.norm(rv, dim=1, keepdim=True)
-        rv = torch.where(rn > 0, rv / torch.where(rn > 0, rn, 1.0), 0.0)
-        inprod = (rv @ gX.T)[:, :K]                       # [Z, K]
-        slot_order = torch.argsort(-inprod, dim=0, stable=True).T
-        slot_of, rem = greedy_round_native(
-            StT, Qc, h, user_order,
-            slot_order.to(torch.int32).contiguous().cpu().numpy(), int(Z))
-        if best is None or rem < best[1]:
-            best = (slot_of, rem, a)
-        if rem == 0:
-            break
+    with span("rounding_ell.round", Z=Z, route="native") as sp:
+        for a in range(nattempt):
+            with span("rounding_ell.attempt", a=a):
+                rv = draws.rounding_rv(a, int(Z), D, gX.dtype)
+                rn = torch.linalg.norm(rv, dim=1, keepdim=True)
+                rv = torch.where(rn > 0, rv / torch.where(rn > 0, rn, 1.0),
+                                 0.0)
+                inprod = (rv @ gX.T)[:, :K]                       # [Z, K]
+                slot_order = torch.argsort(-inprod, dim=0, stable=True).T
+                slot_of, rem = greedy_round_native(
+                    StT, Qc, h, user_order,
+                    slot_order.to(torch.int32).contiguous().cpu().numpy(),
+                    int(Z))
+            if best is None or rem < best[1]:
+                best = (slot_of, rem, a)
+            if rem == 0:
+                break
+        sp.set(attempts=a + 1, rem=best[1])
 
     slot_of, rem, a = best
     if rem:
@@ -582,6 +605,11 @@ def verify_assignment_csr(S_csr, Q_csr, h_max, z_vec) -> Tuple[bool, int, int]:
     compared with ``h_max[j]``; an association violation is a same-slot
     associated pair.  Returns (feasible, n_interf, n_asso).
     """
+    with span("rounding_ell.verify"):
+        return _verify_csr(S_csr, Q_csr, h_max, z_vec)
+
+
+def _verify_csr(S_csr, Q_csr, h_max, z_vec):
     S = S_csr.tocoo()
     z = np.asarray(z_vec).astype(np.int64)
     K = S.shape[0]
@@ -610,6 +638,11 @@ def verify_assignment_ell(ell, z_vec) -> Tuple[bool, int, int]:
     of same-slot S[k, j] over k != j (S̃ rows plus the association-pair
     gains of ``q_gain``) against ``h_max``; an association violation is a
     same-slot associated pair.  Returns (feasible, n_interf, n_asso)."""
+    with span("rounding_ell.verify"):
+        return _verify_ell(ell, z_vec)
+
+
+def _verify_ell(ell, z_vec):
     K = ell.K
     Kp = ell.Kp
     z = np.full(Kp, -1, np.int64)

@@ -9,7 +9,10 @@ as-is (each probe is one solve followed by one rounding).  Faithful to the refer
 * the search loop including the "both bounds infeasible -> shift the window
   up" case (``:57-67``);
 * timing telemetry under the reference's metric keys (``bs_set_bounds``,
-  ``bs_search``, ``bs_search_per_it``).
+  ``bs_search``, ``bs_search_per_it``);
+* spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`): ``search.run``
+  around a search (lo, hi, then Z, rem and the probes ``it``), a
+  ``search.probe`` around each probe (lo, hi, mid, it, then Z and rem).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Tuple
 
 import numpy as np
 
+from sig_sdp_mmw_torch.utils.profiling import span
 from sig_sdp_mmw_torch.utils.stats import StatsObject
 
 
@@ -43,16 +47,20 @@ class BinarySearchRelaxation(StatsObject):
         return max(lb, 2), max(ub, 2)
 
     def run(self, state):
-        bd_tic = self._get_tic()
-        left, right = self.set_bounds(state)
-        tim = self._get_tim(bd_tic)
-        self._add_np_log("bs_set_bounds", 0, np.array([left, right, tim]))
+        with span("search.run") as sp:
+            bd_tic = self._get_tic()
+            left, right = self.set_bounds(state)
+            tim = self._get_tim(bd_tic)
+            self._add_np_log("bs_set_bounds", 0, np.array([left, right, tim]))
+            sp.set(lo=left, hi=right)
 
-        bs_tic = self._get_tic()
-        Z, z_vec, rem, it = self.search(left, right, state)
-        tim = self._get_tim(bs_tic)
-        self._add_np_log("bs_search", 0, np.array([left, right, Z, rem, it, tim]))
-        return z_vec, Z, rem
+            bs_tic = self._get_tic()
+            Z, z_vec, rem, it = self.search(left, right, state)
+            tim = self._get_tim(bs_tic)
+            self._add_np_log("bs_search", 0,
+                             np.array([left, right, Z, rem, it, tim]))
+            sp.set(Z=Z, rem=rem, it=it)
+            return z_vec, Z, rem
 
     def search(self, lo: int, hi: int, state):
         """Feasibility bisection over the window [lo, hi], reference
@@ -65,12 +73,14 @@ class BinarySearchRelaxation(StatsObject):
         alg = self.feasibility_check_alg
         while True:
             mid = (lo + hi) // 2
-            slv_tic = self._get_tic()
-            _, gX = alg.run_with_state(it, mid, state)
-            slv_tim = self._get_tim(slv_tic, sync=gX)
-            rnd_tic = self._get_tic()
-            z_vec, Z, rem = alg.rounding(mid, gX, state)
-            rnd_tim = self._get_tim(rnd_tic)
+            with span("search.probe", lo=lo, hi=hi, mid=mid, it=it) as sp:
+                slv_tic = self._get_tic()
+                _, gX = alg.run_with_state(it, mid, state)
+                slv_tim = self._get_tim(slv_tic, sync=gX)
+                rnd_tic = self._get_tic()
+                z_vec, Z, rem = alg.rounding(mid, gX, state)
+                rnd_tim = self._get_tim(rnd_tic)
+                sp.set(Z=Z, rem=rem)
             self._add_np_log("bs_search_per_it", it,
                              np.array([lo, hi, mid, Z, rem, slv_tim, rnd_tim]))
             it += 1

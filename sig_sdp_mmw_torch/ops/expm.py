@@ -16,6 +16,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from sig_sdp_mmw_torch.utils.profiling import span
+
 MatVec = Callable[[torch.Tensor], torch.Tensor]  # [K, D] -> [K, D], symmetric
 
 
@@ -73,7 +75,8 @@ def lanczos_tridiag(matvec: MatVec, V: torch.Tensor, m: int,
     The bases are stored column-major, [D, m, K] (``Q`` is a permuted view
     of it), so the re-orthogonalization is two batched products over the D
     columns that read the basis in place — an einsum over an [m, K, D]
-    basis copies all of it twice per step.
+    basis copies all of it twice per step.  Each step's
+    re-orthogonalization is a ``lanczos.reorth`` span (timed on a card).
     """
     K, D = V.shape
     dtype, device = V.dtype, V.device
@@ -91,10 +94,11 @@ def lanczos_tridiag(matvec: MatVec, V: torch.Tensor, m: int,
         alpha = torch.sum(q * w, dim=0)
         w = w - alpha[None, :] * q
         if reorth:
-            proj = torch.bmm(Qt, w.T.unsqueeze(-1))            # [D, m, 1]
-            proj = torch.where((steps <= j)[None, :, None], proj,
-                               torch.zeros_like(proj))
-            w = w - torch.bmm(Qt.transpose(1, 2), proj)[:, :, 0].T
+            with span("lanczos.reorth", timed=True):
+                proj = torch.bmm(Qt, w.T.unsqueeze(-1))        # [D, m, 1]
+                proj = torch.where((steps <= j)[None, :, None], proj,
+                                   torch.zeros_like(proj))
+                w = w - torch.bmm(Qt.transpose(1, 2), proj)[:, :, 0].T
         beta = torch.linalg.norm(w, dim=0)
         # Happy breakdown: invariant subspace found -> stop extending.
         alive = beta > 1e-8 * torch.clamp(beta0, min=1e-20)

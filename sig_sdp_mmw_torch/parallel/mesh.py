@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from sig_sdp_mmw_torch.ops.bcsr import shard_range
-from sig_sdp_mmw_torch.utils.profiling import annotate
+from sig_sdp_mmw_torch.utils.profiling import span
 
 
 def mesh_shape(n: int, batch_size: Optional[int] = None) -> Tuple[int, int]:
@@ -72,7 +72,7 @@ class MeshAxis:
         src = local.contiguous()
         out = torch.empty((self.size * src.shape[0], *src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        with annotate("graph.all_gather"), warnings.catch_warnings():
+        with span("graph.all_gather"), warnings.catch_warnings():
             # Newer releases rename it all_gather_single; older ones lack
             # that name.
             warnings.simplefilter("ignore", FutureWarning)
