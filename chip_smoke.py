@@ -3,16 +3,26 @@
 
     python3 chip_smoke.py
 
-1. Build: compiles the port's three CUDA kernels (sig_sdp_mmw_torch/ops/
-   kernels/csrc/{bsr_spmm_flat,bcsr_spmm_ell,bsr_spmm_vres}.cu, for sm_90a)
-   and the native host library (csrc/sig_native.cpp) from this checkout,
-   all four compilers started together, and prints the card's name and
-   power limit.
+1. Build: compiles the port's CUDA kernels (sig_sdp_mmw_torch/ops/
+   kernels/csrc/{bsr_spmm_flat,bcsr_spmm_ell,bsr_spmm_vres,lanczos_step}.cu,
+   for sm_90a) and the native host library (csrc/sig_native.cpp) from this
+   checkout, all five compilers started together, and prints the card's
+   name and power limit.
 2. Kernels vs plain, each on the card against its plain PyTorch version on
    the same inputs, to 1e-5 of max|out|, two launches of each case bitwise
    equal, timed with CUDA events, with the case's bound (bytes of the real
    blocks, V and out over 3.35 TB/s, or its operations over the peak rate,
    whichever is larger; bench_flat_spmm.bound) and the share of it reached:
+   * the Lanczos steps (lanczos_step.cu, lanczos_check): a 10-step
+     lanczos_tridiag call on the 100k operands in the solver's split form
+     at D=128, against its plain version on the card (the coefficients
+     and the basis to 1e-5 of their max with float32 blocks, to
+     LANCZOS_BF16_REL with bf16 blocks), with bf16 blocks bitwise equal to
+     a second call and to the generic form, its launches, and the passes'
+     time (the call less its products) against 14 + 2j [K, D] float32
+     blocks a step j over 3.35 TB/s; and a call at the dense cell's shape
+     (K=304, D=32, m=10) in the generic form, its coefficients, basis and
+     combination against the plain version to 1e-5 of their max;
    * flat block-CSR (bsr_spmm_flat) on the K=100,467 S̃ operand of the
      100k path (128x128 blocks, 8 per step): bf16 blocks at D=32, 48, 64
      and 128 (and D=128 split over two 64-column CTAs), float32 blocks at
@@ -80,7 +90,8 @@
    Then a short solve with the gap log
    (MMWEll(nit=5, log_gap=True) at Z=16 on that instance's flat operands):
    its gap Lanczos sends D=1 through the flat kernel, and every gap entry
-   must be finite.
+   must be finite.  The search's Lanczos launches are read right after
+   it: every step on "kernel", 4m + 2 launches an exponential (m = 10).
 4. The million-link path: sig_sdp_mmw_torch/experiments/million_link_e2e.py
    at its defaults (cell 580, K=1,009,200: 128x128 bf16 blocks with stored
    transpose, gram_mode="edge", row_chunk=2048, D_pad=48, lanczos_m=8,
@@ -103,7 +114,9 @@
    experiments/sim_mmw_time.py at cells 10 and 15 (K=675), every CSV
    written with finite times (the search at cell 15 with MMW(nit=150,
    eta=0.04), rem 0 and verified, runs in phase 7's sim_all_bler); (d)
-   the SpMM kernels launched 0 times.
+   the SpMM kernels launched 0 times.  The Lanczos launches of (a), then
+   of (a) and (b), are read after each: every step on "kernel", 4m + 2
+   launches an exponential.
 6. Mid-K (LargeEnv cell 40, Kp <= 16,384, so the device rounding takes the
    batched route) on 32x32 bf16 blocks, so S̃/S̃ᵀ go through the flat
    kernel's short-block tile and Q through the block-ELL kernel's:
@@ -185,7 +198,9 @@
    package's on the CPU (ORACLE_GEOMETRY_Z).
 11. The six tools studies (experiments/plateau_study.py,
    million_link.py, million_z19_probe.py, reorder_bench.py, perf_sweep.py,
-   profile_bcsr_build.py) at a short depth: (a) plateau_study's row at
+   profile_bcsr_build.py) at a short depth, each study's Lanczos steps
+   through their kernels (lanczos_step launched on "kernel" and counted
+   beside the SpMM kernels' routes): (a) plateau_study's row at
    cell 24 (K=1,728) with one segment of 125 iterations: Z_fin within 1
    of PLATEAU_VS_K.json's 14, ub finite, kernels #1 and #3 launched on
    ring only; (b) million_link at cell 60 (K=10,800), 64x64 bf16 blocks,
@@ -198,7 +213,7 @@
    runs at cell 60, nit 5: the same K and nnz, #1 and #3 on ring and on
    short_bf16 respectively; (e) perf_sweep at m=32 and 8 on the tool's
    users (tests/fixtures/perf_sweep_cell10_seed7_geometry.npz), nit 150:
-   both ub finite, no kernel launched; (f) profile_bcsr_build at cell 60,
+   both ub finite, no SpMM kernel launched; (f) profile_bcsr_build at cell 60,
    every stage timed.  The kernels' launches in this phase are
    tools_launches in the kernels line.
 Each phase prints its seconds ("[time] phase N").
@@ -206,12 +221,14 @@ Each phase prints its seconds ("[time] phase N").
 Every kernel counts its launches; each path's counts are set to 0 just
 before it runs and read just after (the V-resident kernel's path is the
 SpMM bench; it must launch 0 times on the 100k and million-link paths,
-and no kernel may launch on the dense path, as in the JAX package).
+and no SpMM kernel may launch on the dense path, as in the JAX package).
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.  The line before the last is the
 kernels' JSON record (each kernel with its phase-6 generic launches, the
 generic block shapes checked in phase 2, the routes it took in phase 2 and
-its float32 cases, and its phase-8 launches per rank), the last ``{"ok":
+its float32 cases, and its phase-8 launches per rank; the Lanczos steps'
+kernel with its phase-3 and phase-5 launches, phase 2's errors and times),
+the last ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -277,6 +294,16 @@ MIDK_CELL, MIDK_BLOCK = 40, 32
 # its solve there (Z = lb + 4 = 18 slots, D_pad 48).
 SHARD_CELL, SHARD_D = 100, 48
 GENERIC_D = 48
+# Phase 2's Lanczos case: the bound on its bfloat16-block call's largest
+# |diff| from the plain version over the output's largest magnitude.  The
+# plain basis rounds to other bfloat16 operands wherever its float32 sums
+# differ from the kernel's in the last bit, and the steps carry that on:
+# over six V draws on the H100 the basis read 1.7e-3 to 4.1e-3, alpha
+# 6.8e-4 to 1.7e-3, beta 2.8e-4 to 5.7e-4, beta0 2.9e-7; a wrong pass
+# reads O(1).
+LANCZOS_BF16_REL = 2e-2
+# The dense cell's generic-form shape there: K, D, m.
+LANCZOS_DENSE_SHAPE = (304, 32, 10)
 REPLACES = {"bsr_spmm_flat": "sig_sdp_mmw_tpu/ops/bcsr.py:334",
             "bcsr_spmm_ell": "sig_sdp_mmw_tpu/ops/bcsr.py:183",
             "bsr_spmm_vres": "sig_sdp_mmw_tpu/ops/bcsr.py:397"}
@@ -294,10 +321,34 @@ def gpu_line() -> str:
 
 
 def reset_launches(tb) -> None:
-    """Set every kernel wrapper's launch counts to 0."""
+    """Set every kernel wrapper's launch counts to 0, and the Lanczos
+    steps' launches and steps by route."""
+    from sig_sdp_mmw_torch.ops.expm import lanczos_tridiag
+
     for fn in (tb.bsr_spmm_flat, tb.bcsr_spmm, tb.bsr_spmm_vres):
         fn.launches = fn.generic_launches = 0
         fn.route_launches = {}
+    lanczos_tridiag.launches = 0
+    lanczos_tridiag.route_steps.update(kernel=0, plain=0)
+
+
+def lanczos_launches(name: str, runs) -> int:
+    """The Lanczos steps' launches since the last :func:`reset_launches`,
+    checked: every step on "kernel", and 4m + 2 launches for each m-step
+    exponential (two start passes, four passes a step less the last
+    step's normalisation, one combination).  ``runs``: (exponentials, m)
+    pairs."""
+    from sig_sdp_mmw_torch.ops.expm import lanczos_tridiag
+
+    got = dict(launches=lanczos_tridiag.launches,
+               steps=dict(lanczos_tridiag.route_steps))
+    want = dict(launches=sum(n * (4 * m + 2) for n, m in runs),
+                steps={"kernel": sum(n * m for n, m in runs), "plain": 0})
+    log(f"[lanczos] {name}: {json.dumps(got)} ({json.dumps(runs)} "
+        f"exponentials, m)")
+    if got != want:
+        raise AssertionError(f"{name}: Lanczos {got}, want {want}")
+    return got["launches"]
 
 
 def compare(name, mat, V, kernel, plain, iters=20, library=False):
@@ -329,6 +380,127 @@ def compare(name, mat, V, kernel, plain, iters=20, library=False):
         log(f"[2 library] {name}: {rec['library_call']} {rec['library_ms']} "
             f"ms in {rec['library_dtype']}, kernels {rec['library_kernels']}, "
             f"refused {rec['library_refused']}")
+    return rec
+
+
+def lanczos_check(tb, S, Q, gen, m: int = 10, D: int = 128,
+                  iters: int = 10) -> dict:
+    """Phase 2's Lanczos case: an m-step ``lanczos_tridiag`` call at the
+    100k sketch's shape in the block-sparse solver's split form (flat S̃ and
+    S̃ᵀ, block-ELL Q, 128x128 blocks, random d, h and Q values), and one at
+    the dense cell's shape in the generic form.  Each against the plain
+    version on the card: the largest |diff| of the basis and of alpha, beta
+    and beta0 over their largest magnitude, within REL_TOL with float32
+    blocks and in the dense form (whose combination F too), within
+    LANCZOS_BF16_REL with bfloat16 blocks (the main path).  With bfloat16
+    blocks besides: two calls bit for bit, and bit for bit the generic form
+    of the same operator (the SpMM wrappers' casts instead of the operands
+    the last pass writes); the launches; the times of the call, of the
+    plain version, of a step's three products alone, and of the passes
+    (the call less its m steps' products) against their bound, 14 + 2j
+    blocks of [K, D] float32 a step j over 3.35 TB/s."""
+    import torch
+
+    from sig_sdp_mmw_torch.experiments.bench_flat_spmm import (
+        HBM_BYTES_PER_S, REL_TOL, time_ms)
+    from sig_sdp_mmw_torch.ops import expm
+
+    K = S.shape[0]
+
+    def split_operator(dt):
+        ops = tb.bcsr_operands_from_state(S, Q, block=128, dtype=dt,
+                                          store_transpose=True,
+                                          flat_group=GROUP, device="cuda")
+        nrows = ops.s_blocks.ncols
+        Kbr, maxblkQ = ops.q_bcols.shape
+        qvals = torch.zeros(Kbr * 128 * maxblkQ * 128, dtype=dt,
+                            device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        ev = torch.randn((int(ops.q_eidx.max()) + 1,), generator=g,
+                         device="cuda")
+        qvals[ops.q_pos] = ev[ops.q_eidx].to(dt)
+        qm = tb.BlockEll(bcols=ops.q_bcols,
+                         blocks=qvals.reshape(Kbr, 128, maxblkQ, 128),
+                         nrows=Kbr * 128, ncols=nrows)
+        return expm.SplitOperator(
+            d=torch.randn((K,), generator=g, device="cuda"),
+            h=torch.rand((K,), generator=g, device="cuda"),
+            products=(lambda Vp: tb.bcsr_spmm(qm, Vp),
+                      lambda Vp: tb.bsr_spmm_flat(ops.s_flat, Vp),
+                      lambda Vp: tb.bsr_spmm_flat(ops.st_flat, Vp)),
+            nrows=nrows, operand_dtype=dt, scale=0.5)
+
+    def rel_errs(label, got, want, tol):
+        """Largest |got - want| over max|want| of each output, <= tol."""
+        errs = {}
+        for name, a, b in zip(("Q", "alphas", "betas", "beta0", "F"), got,
+                              want):
+            errs[name] = (float((a.double() - b.double()).abs().max())
+                          / float(b.abs().max()))
+            if not errs[name] <= tol:
+                raise AssertionError(f"lanczos_step {label}: {name} "
+                                     f"max|diff| {errs[name]:.3e} of "
+                                     f"max|plain|, over {tol:.1e}")
+        return errs
+
+    V = torch.randn((K, D), generator=gen, device="cuda")
+    op = split_operator(torch.float32)
+    errs = {"f32": rel_errs("f32", expm.lanczos_tridiag(op, V, m),
+                            expm.lanczos_tridiag_reference(op, V, m),
+                            REL_TOL)}
+    del op
+    torch.cuda.empty_cache()
+    op = split_operator(torch.bfloat16)
+    n0 = expm.lanczos_tridiag.launches
+    got = expm.lanczos_tridiag(op, V, m)
+    launches = expm.lanczos_tridiag.launches - n0
+    again = expm.lanczos_tridiag(op, V, m)
+    generic = expm.lanczos_tridiag(expm.LanczosOperator(op), V, m)
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(got, again, generic)):
+        raise AssertionError("lanczos_step: two calls, or the split and the "
+                             "generic form, differ")
+    errs["bf16"] = rel_errs("bf16", got,
+                            expm.lanczos_tridiag_reference(op, V, m),
+                            LANCZOS_BF16_REL)
+    del got, again, generic
+    Vb = torch.zeros((op.nrows, D), dtype=torch.bfloat16, device="cuda")
+    Vb[:K] = V
+    ms = time_ms(lambda: expm.lanczos_tridiag(op, V, m), iters)
+    plain_ms = time_ms(lambda: expm.lanczos_tridiag_reference(op, V, m),
+                       iters)
+    products_ms = time_ms(lambda: [f(Vb) for f in op.products], iters)
+    passes_ms = ms - m * products_ms
+    block = K * D * 4
+    bound_ms = (sum(14 + 2 * j for j in range(m)) * block / HBM_BYTES_PER_S
+                * 1e3)
+    del op, Vb
+    torch.cuda.empty_cache()
+
+    # The dense cell's generic form: L @ V by torch.matmul, scale 0.5.
+    Kd, Dd, md = LANCZOS_DENSE_SHAPE
+    B = torch.randn((Kd, Kd), generator=gen, device="cuda") / Kd ** 0.5
+    A = B + B.T
+    dense = expm.LanczosOperator(lambda X: A @ X, 0.5)
+    Vd = torch.randn((Kd, Dd), generator=gen, device="cuda")
+    coeff = torch.randn((Dd, md), generator=gen, device="cuda")
+    got = expm.lanczos_tridiag(dense, Vd, md)
+    want = expm.lanczos_tridiag_reference(dense, Vd, md)
+    errs["dense"] = rel_errs(
+        "dense", (*got, expm.lanczos_combine(got[0], coeff)),
+        (*want, expm.lanczos_combine_reference(want[0], coeff)), REL_TOL)
+
+    rec = dict(K=K, D=D, m=m, launches=launches, rel_err=errs,
+               dense_shape=[Kd, Dd, md], ms=ms, plain_ms=plain_ms,
+               products_ms_per_step=products_ms, passes_ms=passes_ms,
+               passes_bound_ms=bound_ms, share=bound_ms / passes_ms,
+               step_ms=passes_ms / m, step_bound_ms=bound_ms / m)
+    log(f"[2 lanczos] 100k split K={K} D={D} m={m} and dense generic "
+        f"{LANCZOS_DENSE_SHAPE} against plain, rel err {json.dumps(errs)}; "
+        f"bf16 blocks: {launches} launches, call {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms), products {products_ms:.3f} ms a step, passes "
+        f"{passes_ms:.3f} ms ({passes_ms / m:.4f} ms a step), bound "
+        f"{bound_ms:.3f} ms, share {bound_ms / passes_ms:.3f}")
     return rec
 
 
@@ -533,7 +705,7 @@ def dense_phase(tb, out_dir: str) -> dict:
         main as mmw_time_main
     from sig_sdp_mmw_torch.models import (MMW, BinarySearchRelaxation,
                                           verify_assignment)
-    from sig_sdp_mmw_torch.models.mmw import mmw_solve
+    from sig_sdp_mmw_torch.models.mmw import mmw_default_lanczos_m, mmw_solve
     from sig_sdp_mmw_torch.utils.draws import TorchDraws
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -575,6 +747,8 @@ def dense_phase(tb, out_dir: str) -> dict:
     if out.tensor_devices() != {"cuda"} or not np.isfinite(rec["ub_final"]):
         raise AssertionError(f"dense solve output on {out.tensor_devices()}, "
                              f"ub_final {rec['ub_final']}")
+    runs = [(6 * DENSE_NIT, mmw_default_lanczos_m(ETA, DENSE_NIT))]
+    rec["lanczos_launches"] = lanczos_launches("dense solves", runs)
 
     # (b) the drive recipe on the same state.
     bs = BinarySearchRelaxation()
@@ -608,6 +782,9 @@ def dense_phase(tb, out_dir: str) -> dict:
                              f"{DENSE_Z_REF}")
     if one_slot < 0.99:
         raise AssertionError(f"all-in-one-slot BLER {one_slot} < 0.99")
+    runs.append((len(probes) * 100, mmw_default_lanczos_m(ETA, 100)))
+    rec["lanczos_launches"] = lanczos_launches("dense solves and search",
+                                               runs)
 
     # (c) the entry point.
     t0 = time.time()
@@ -1366,8 +1543,10 @@ def tools_phase(tb, tmp: str) -> dict:
     rec = {}
 
     def routes(launches, name, want):
-        """Each kernel of ``want`` launched on its route only, the others
-        not at all."""
+        """Each kernel of ``want`` launched on its route only, and the
+        Lanczos steps' kernels (every study here solves), the others not at
+        all."""
+        want = {**want, "lanczos_step": "kernel"}
         got = {k: set(v) for k, v in launches.items()}
         if got != {k: {r} for k, r in want.items()} or any(
                 n <= 0 for v in launches.values() for n in v.values()):
@@ -1435,15 +1614,15 @@ def tools_phase(tb, tmp: str) -> dict:
         routes(r["launches"], f"reorder_bench {r['order']} {r['block']}",
                {"bsr_spmm_flat": route, "bcsr_spmm": route})
 
-    # (e) perf_sweep at m=32 and 8 on the tool's users (the dense path:
-    # no kernel).
+    # (e) perf_sweep at m=32 and 8 on the tool's users (the dense path: no
+    # SpMM kernel, the Lanczos steps' kernels alone).
     t0 = time.time()
     ps = perf_sweep.main(ms=(32, 8), geometry=PERF_SWEEP_GEOMETRY,
                          device="cuda")
     done("perf_sweep", {k: ps[k] for k in ("K", "rows", "max_ub_diff",
                                            "launches")}, t0)
     if (not all(math.isfinite(r["ub_final"]) for r in ps["rows"])
-            or ps["launches"]):
+            or set(ps["launches"]) != {"lanczos_step"}):
         raise AssertionError(f"perf_sweep: {ps}")
 
     # (f) the host stage profile of the block-operand build.
@@ -1470,9 +1649,10 @@ def main() -> int:
     from sig_sdp_mmw_torch.experiments.e2e_large import main as e2e_main
     from sig_sdp_mmw_torch.experiments.million_link_e2e import \
         main as million_main
+    from sig_sdp_mmw_torch.models.mmw import mmw_default_lanczos_m
     from sig_sdp_mmw_torch.native import builder, native_available
     from sig_sdp_mmw_torch.ops import bcsr as tb
-    from sig_sdp_mmw_torch.ops import kernels
+    from sig_sdp_mmw_torch.ops import expm, kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1569,6 +1749,8 @@ def main() -> int:
                            blocks=qvals.reshape(Kbr, Br, maxblkQ, Bc),
                            nrows=ops.s_blocks.nrows)
 
+    lanczos = lanczos_check(tb, S, Q, gen)
+    torch.cuda.empty_cache()
     check_flat("S~", St, torch.bfloat16, (32, 48, 64, 128), library=(48, 128),
                split=(128,))
     check_flat("S~", St, torch.float32, (32, 128), library=(32, 128))
@@ -1764,6 +1946,9 @@ def main() -> int:
     flat_launches = tb.bsr_spmm_flat.launches
     ell_launches_100k = tb.bcsr_spmm.launches
     vres_launches_100k = tb.bsr_spmm_vres.launches
+    lanczos_launches_100k = lanczos_launches(
+        "100k search", [(rec["n_probes"] * NIT,
+                         mmw_default_lanczos_m(ETA, NIT))])
     rec["rounding_compare"] = native_rounding_on_last_factor(
         last, rec["rounding_us_per_probe"][-1] / 1e6)
     log("[3 e2e] phases_s " + json.dumps(rec["phases_s"]))
@@ -1886,7 +2071,7 @@ def main() -> int:
     # ---- 5. the dense journal-scale path -----------------------------------
     t_phase = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        dense_phase(tb, os.path.join(tmp, "sim_mmw_time"))
+        dense = dense_phase(tb, os.path.join(tmp, "sim_mmw_time"))
     log(f"[time] phase 5 {time.time() - t_phase:.1f}s")
 
     # ---- 6. mid-K: batched rounding, speculative search, short-block tiles
@@ -1919,7 +2104,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         studies = studies_phase(tb, tmp)
     studies_launches = {"bsr_spmm_flat": tb.bsr_spmm_flat.launches,
-                        "bcsr_spmm_ell": tb.bcsr_spmm.launches}
+                        "bcsr_spmm_ell": tb.bcsr_spmm.launches,
+                        "lanczos_step": expm.lanczos_tridiag.launches}
     if tb.bsr_spmm_vres.launches:
         raise AssertionError("the studies launched the V-resident kernel")
     log(f"[10 studies] launches {json.dumps(studies_launches)}")
@@ -1931,7 +2117,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tools = tools_phase(tb, tmp)
     tools_launches = {"bsr_spmm_flat": tb.bsr_spmm_flat.launches,
-                      "bcsr_spmm_ell": tb.bcsr_spmm.launches}
+                      "bcsr_spmm_ell": tb.bcsr_spmm.launches,
+                      "lanczos_step": expm.lanczos_tridiag.launches}
     if tb.bsr_spmm_vres.launches:
         raise AssertionError("the tools studies launched the V-resident "
                              "kernel")
@@ -1979,6 +2166,17 @@ def main() -> int:
               "bcsr_spmm_ell.cu", midk["ell_generic_launches"]),
         entry("bsr_spmm_vres", vres_launches,
               cases["vres S~ bfloat16 G=8 D=48"], "bsr_spmm_vres.cu", 0),
+        {"name": "lanczos_step", "route": "cuda",
+         "source": "sig_sdp_mmw_torch/ops/kernels/csrc/lanczos_step.cu",
+         "replaces": "sig_sdp_mmw_tpu/ops/expm.py:80",
+         "launches": lanczos_launches_100k,
+         "dense_launches": dense["lanczos_launches"],
+         "rel_err": lanczos["rel_err"], "ms": lanczos["ms"],
+         "plain_ms": lanczos["plain_ms"],
+         "passes_ms": lanczos["passes_ms"],
+         "bound_ms": lanczos["passes_bound_ms"], "bound_by": "memory",
+         "studies_launches": studies_launches["lanczos_step"],
+         "tools_launches": tools_launches["lanczos_step"]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,11 +86,15 @@ def card_info(device) -> dict:
 def launch_snapshot() -> dict:
     """The launch counts of kernels #1 (``bsr_spmm_flat``) and #3
     (``bcsr_spmm``) so far, by the route each launch took (the wrappers'
-    ``route_launches``); :func:`launches_since` takes the difference."""
+    ``route_launches``), and those of the Lanczos steps' kernels
+    (``lanczos_step``, route ``"kernel"``: ``lanczos_tridiag.launches``);
+    :func:`launches_since` takes the difference."""
     from sig_sdp_mmw_torch.ops import bcsr as tb
+    from sig_sdp_mmw_torch.ops.expm import lanczos_tridiag
 
     return {"bsr_spmm_flat": dict(tb.bsr_spmm_flat.route_launches),
-            "bcsr_spmm": dict(tb.bcsr_spmm.route_launches)}
+            "bcsr_spmm": dict(tb.bcsr_spmm.route_launches),
+            "lanczos_step": {"kernel": lanczos_tridiag.launches}}
 
 
 def launches_since(snap: dict) -> dict:

@@ -6,7 +6,8 @@ state, as a Python loop over tensors on the state's device:
 
 * ``scipy.sparse.linalg.expm_multiply`` -> the fixed-depth batched Lanczos
   of :func:`sig_sdp_mmw_torch.ops.expm.lanczos_expm_multiply`, each step a
-  [Kp, Kp] @ [Kp, D] product (``torch.matmul``; TF32 stays off), with a
+  [Kp, Kp] @ [Kp, D] product (``torch.matmul``; TF32 stays off) in the
+  operator's generic form, the 0.5 folded into the step, with a
   global log-scale so the trace-normalized Gibbs state is exact in float32;
 * the sketch width is padded to ``D_pad`` with masked columns;
 * random draws come from a draws object (:mod:`sig_sdp_mmw_torch.utils.
@@ -21,7 +22,9 @@ on purpose (the gap log's small ``eigvalsh`` may).
 Spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`, recorded only while
 a profiler runs): ``mmw.solve`` around a solve, with its
 :func:`solve_record`; inside it, each iteration's ``mmw.dual``,
-``mmw.loss``, ``mmw.expm`` (the sketch and the Lanczos exponential) and
+``mmw.loss``, ``mmw.expm`` (the sketch and the Lanczos exponential; its
+``lanczos`` attribute ``"kernel"`` where the Lanczos steps run as the
+hand-written passes, ``"plain"`` elsewhere) and
 ``mmw.primal`` (the normalised Gram), then ``mmw.factor`` (the bound
 and the factorisation).  They bracket the
 phases of :meth:`MMW.run_with_state_profiled`: ``mmw_dual``, ``mmw_loss``,
@@ -45,7 +48,8 @@ import torch
 from sig_sdp_mmw_torch.core.preprocess import MMWOperands, build_mmw_operands
 from sig_sdp_mmw_torch.core.problem import SigState
 from sig_sdp_mmw_torch.models.base import SDPSolverBase
-from sig_sdp_mmw_torch.ops.expm import lanczos_expm_multiply
+from sig_sdp_mmw_torch.ops.expm import (LanczosOperator,
+                                        lanczos_expm_multiply, lanczos_route)
 from sig_sdp_mmw_torch.ops.lanczos import lanczos_extreme_eigs
 from sig_sdp_mmw_torch.ops.rsvd import randomized_symmetric_lowrank
 from sig_sdp_mmw_torch.utils.draws import TorchDraws
@@ -338,10 +342,11 @@ def mmw_solve(state: SigState, Z, *, nit: int, eta: float,
                                                Zf, K, Kp, rows)
 
         # ---- primal via sketched expm -------------------------------------
-        with span("mmw.expm"):
+        with span("mmw.expm", lanczos=lanczos_route(device)):
             G = _sketch(draws, i, op, D_pad, D_act, dtype)
             X_half, _ = lanczos_expm_multiply(
-                lambda V: 0.5 * graph.gather_rows(L_accu @ V, Kp), G,
+                LanczosOperator(lambda V: graph.gather_rows(L_accu @ V, Kp),
+                                0.5), G,
                 m=lanczos_m, small_method="taylor_ss", norm_bound=eta * nit)
         with span("mmw.primal"):
             X_mdiag, X_offdi = _primal(op, X_half, K, rows)
@@ -388,7 +393,7 @@ def make_mmw_phase_fns(*, nit: int, eta: float, rank_radio: int, D_pad: int,
         G = _sketch(draws, i, op, D_pad, int(float(Z) * rank_radio),
                     op.St.dtype)
         X_half, _ = lanczos_expm_multiply(
-            lambda V: 0.5 * (L_accu @ V), G, m=lanczos_m,
+            LanczosOperator(lambda V: L_accu @ V, 0.5), G, m=lanczos_m,
             small_method="taylor_ss", norm_bound=eta * nit)
         return _primal(op, X_half, op.K)
 

@@ -29,7 +29,9 @@ Spans (:func:`sig_sdp_mmw_torch.utils.profiling.span`, recorded only while
 a profiler runs): ``mmw_ell.solve`` around a call, with its
 :func:`sig_sdp_mmw_torch.models.mmw.solve_record`; inside it, each
 iteration's ``mmw_ell.dual``, ``mmw_ell.loss``, ``mmw_ell.sketch``,
-``mmw_ell.expm``, ``mmw_ell.primal`` and ``mmw_ell.gram``, then
+``mmw_ell.expm`` (its ``lanczos`` attribute ``"kernel"`` where the
+Lanczos steps run as the hand-written passes, ``"plain"`` elsewhere),
+``mmw_ell.primal`` and ``mmw_ell.gram``, then
 ``mmw_ell.factor`` (the bound and the factorisation; timed on a card).
 With block operands each product of a block operand is a
 ``bcsr.spmm`` span, its ``operand`` named as
@@ -51,7 +53,9 @@ import torch.nn.functional as F
 from sig_sdp_mmw_torch.models.mmw import (mmw_default_lanczos_m,
                                           solve_record, solve_span)
 from sig_sdp_mmw_torch.ops.ell import ell_edge_gather_dot, ell_spmm
-from sig_sdp_mmw_torch.ops.expm import lanczos_expm_multiply
+from sig_sdp_mmw_torch.ops.expm import (LanczosOperator, SplitOperator,
+                                        lanczos_expm_multiply, lanczos_route,
+                                        split_sum)
 from sig_sdp_mmw_torch.ops.lanczos import lanczos_extreme_eigs
 from sig_sdp_mmw_torch.utils.draws import TorchDraws
 from sig_sdp_mmw_torch.utils.profiling import span
@@ -287,7 +291,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
 
     def loss_pieces(YD, YF, YH):
         """Implicit loss L(Y) = diag(d) + sym-edge(f on Q) + sym(h∘S̃), as
-        the three coefficient vectors L_apply takes."""
+        the three coefficient vectors L_operator takes."""
         ld = (YD - torch.sum(YD) / K) / (1.0 - 1.0 / K)
         lf_diag = torch.sum(YF) / (K * (Zf - 1.0)) * cF
         coeff = YH / norm_H
@@ -297,21 +301,42 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         h = coeff * (Zf - 1.0) / (2.0 * Zf)
         return d, f, h
 
+    def products(qv):
+        """The three block products of the operator, Q (values ``qv``,
+        from ``q_vals``), S̃ and S̃ᵀ, on this rank's rows."""
+        return (lambda Vp: q_loc(qv, Vp), s_loc, st_loc)
+
     def L_operator(d_accu, qv, hrow):
         """V -> implicit L_accu @ V: this rank's rows, then the all-gather.
         ``qv``: the association operator's values (``q_vals``)."""
-        dl, hl = loc(d_accu)[:, None], loc(hrow)[:, None]
+        dl, hl = loc(d_accu), loc(hrow)
 
         def apply(V):
             Vp = padV(V)
             with local_span("graph.local_product"):
-                t = dl * Vp[rows]
-                t = t + q_loc(qv, Vp)
-                t = t + hl * s_loc(Vp)
-                t = t + st_loc(padV(hrow[:, None] * V))
+                t = split_sum(dl, hl, products(qv), Vp[rows], Vp,
+                              padV(hrow[:, None] * V))
             return gather(t)
 
         return apply
+
+    # The products' operand type in the split form: the block type where
+    # every product is a kernel, whose wrapper would round V to it (the
+    # transpose through S̃, plain torch, takes V as it is).
+    op_dtype = (q_dtype if use_bcsr and (bcsr.s_flat is not None
+                                         or bcsr.st_blocks is not None)
+                else dtype)
+
+    def lanczos_operator(d_accu, qv, hrow, scale):
+        """``scale * L_operator(d_accu, qv, hrow)`` as the Lanczos steps
+        take it: on one process split into its parts, so that a card's
+        steps add them in their first pass and write the products' next
+        operands in their last; over a graph axis the gathered product."""
+        if graph.size > 1:
+            return LanczosOperator(L_operator(d_accu, qv, hrow), scale)
+        return SplitOperator(d=d_accu, h=hrow, products=products(qv),
+                             nrows=nrows, operand_dtype=op_dtype,
+                             scale=scale)
 
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=device)
@@ -368,7 +393,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             d_bar, f_bar, h_bar = loss_pieces(ya_D / n, ya_F / n,
                                               ya_H / n)
             lam_min, _ = lanczos_extreme_eigs(
-                L_operator(d_bar, q_vals(f_bar), h_bar),
+                lanczos_operator(d_bar, q_vals(f_bar), h_bar, 1.0),
                 draws.gap(i, (Kp, 1), dtype), m=gap_lanczos_m)
             c["gap"][i, 0] = u
             c["gap"][i, 1] = lam_min * K
@@ -387,7 +412,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             d_accu = c["d_accu"] - eta * ld_d
             f_accu = c["f_accu"] - eta * lf_f
             hrow = c["hrow"] - eta * lh_h
-            L_apply = L_operator(d_accu, q_vals(f_accu), hrow)
+            L_half = lanczos_operator(d_accu, q_vals(f_accu), hrow, 0.5)
 
         # Primal: Gibbs-state sketch.
         with span("mmw_ell.sketch"):
@@ -396,9 +421,9 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
             rn = torch.linalg.norm(G, dim=1, keepdim=True)
             G = torch.where(rn > 0, G / torch.where(rn > 0, rn, 1.0), 0.0)
 
-        with span("mmw_ell.expm"):
+        with span("mmw_ell.expm", lanczos=lanczos_route(device)):
             X_half, _ = lanczos_expm_multiply(
-                lambda V: 0.5 * L_apply(V), G,
+                L_half, G,
                 m=lanczos_m, reorth=reorth, small_method="taylor_ss",
                 norm_bound=eta * nit)
 

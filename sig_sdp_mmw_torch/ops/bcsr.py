@@ -197,8 +197,10 @@ def ell_kernel_unsupported(mat: BlockEll, V: torch.Tensor) -> Optional[str]:
         return (f"blocks {list(mat.blocks.shape)} do not match bcols "
                 f"{list(mat.bcols.shape)}, nrows {mat.nrows} and ncols "
                 f"{mat.ncols}")
-    if V.dtype != torch.float32:
-        return f"V must be float32, got {V.dtype}"
+    if V.dtype != torch.float32 and not (
+            V.dtype == mat.blocks.dtype == torch.bfloat16):
+        return (f"V must be float32 (or bfloat16 with bfloat16 blocks), got "
+                f"{V.dtype}")
     if V.dim() != 2 or V.shape[0] != mat.ncols:
         return f"V must be [{mat.ncols}, D], got {list(V.shape)}"
     if V.shape[1] == 0 or V.shape[1] % 8:
@@ -235,7 +237,8 @@ def bcsr_spmm(mat: BlockEll, V: torch.Tensor,
     tensor-core ring tile, every other shape (8x128 included) the
     short-block tensor-core tile, in bfloat16 or float32 (three tf32
     products per pair, :func:`tf32_split_matmul`).  For bfloat16 blocks V
-    is rounded to bfloat16 here, once per call (the plain version's cast);
+    is rounded to bfloat16 here, once per call (the plain version's cast),
+    unless it comes in bfloat16 (the Lanczos steps write their operands so);
     float32 blocks read V as it is.  A CTA (ring) or warp (short) covers
     ``tile_cols`` output columns (default :func:`ring_tile_cols` and
     :func:`short_tile_cols`; the override applies to the ring tile only).
@@ -674,8 +677,10 @@ def flat_kernel_unsupported(mat: FlatBsr, V: torch.Tensor) -> Optional[str]:
     if mat.nrows != mat.Kbr * mat.Br or mat.ncols % mat.Bc:
         return (f"nrows {mat.nrows} and ncols {mat.ncols} do not match "
                 f"{mat.Kbr} block-rows of {mat.Br}x{mat.Bc} blocks")
-    if V.dtype != torch.float32:
-        return f"V must be float32, got {V.dtype}"
+    if V.dtype != torch.float32 and not (
+            V.dtype == mat.blocks.dtype == torch.bfloat16):
+        return (f"V must be float32 (or bfloat16 with bfloat16 blocks), got "
+                f"{V.dtype}")
     if V.dim() != 2 or V.shape[0] != mat.ncols:
         return f"V must be [{mat.ncols}, D], got {list(V.shape)}"
     if V.shape[1] == 0 or V.shape[1] % 8:
@@ -711,10 +716,10 @@ def bsr_spmm_flat(mat: FlatBsr, V: torch.Tensor,
     The body follows :func:`spmm_route`, as in :func:`bcsr_spmm`: 128x128
     blocks take the tensor-core ring tile (``tile_cols`` output columns per
     CTA, default :func:`ring_tile_cols`), every other shape the short-block
-    tensor-core tile, in bfloat16 (V rounded to bfloat16 here once) or
-    float32 (three tf32 products per pair).  Both skip the slots that pad a
-    row to a multiple of G (column-block 0 after the row's first slot, all
-    zeros)."""
+    tensor-core tile, in bfloat16 (V rounded to bfloat16 here once, unless
+    it comes in bfloat16) or float32 (three tf32 products per pair).  Both
+    skip the slots that pad a row to a multiple of G (column-block 0 after
+    the row's first slot, all zeros)."""
     if V.device.type == "cpu":
         return bsr_spmm_flat_reference(mat, V)
     if V.device.type != "cuda":

@@ -10,9 +10,12 @@ start every ``nvcc`` together.
 * ``bsr_spmm_flat``  — flat block-CSR SpMM (``bsr_spmm_flat.cu``);
 * ``bcsr_spmm_ell``  — block-ELL SpMM (``bcsr_spmm_ell.cu``);
 * ``bsr_spmm_vres``  — flat block-CSR SpMM with V resident in L2
-  (``bsr_spmm_vres.cu``).
+  (``bsr_spmm_vres.cu``);
+* ``lanczos_step``   — the batched Lanczos recurrence of
+  :func:`sig_sdp_mmw_torch.ops.expm.lanczos_tridiag`, four passes a step,
+  and the combination of its basis (``lanczos_step.cu``).
 
-The three share their tile code through ``spmm_tile.cuh``: the
+The three SpMM kernels share their tile code through ``spmm_tile.cuh``: the
 tensor-core ring tile of 128x128 blocks and the short-block tensor-core tile
 of every other shape, each in bfloat16 and in float32 (three tf32 products
 per pair, float32 accuracy).  The entry points, one per route of
@@ -38,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import threading
 from typing import Dict, Tuple
 
@@ -60,11 +64,18 @@ build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    """nvcc of the CUDA toolkit that ``torch.utils.cpp_extension`` would
+    find (``CUDA_HOME``, ``CUDA_PATH``, the ``nvcc`` on ``PATH``,
+    ``/usr/local/cuda``), found the same way without importing that module,
+    whose import takes most of a second of a process's set-up."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home is None:
+        found = shutil.which("nvcc")
+        home = (os.path.dirname(os.path.dirname(found)) if found
+                else "/usr/local/cuda")
+        if not os.path.exists(home):
+            raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
+    return os.path.join(home, "bin", "nvcc")
 
 
 def _headers_digest() -> str:
@@ -149,7 +160,32 @@ def bsr_spmm_vres_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
+def lanczos_step_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = load_kernel_library("lanczos_step", defines)
+    if getattr(lib, "bound", False):   # called once a Lanczos call
+        return lib
+    vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_double)
+    for name, args in (
+            ("lanczos_plan_bytes", []),
+            ("lanczos_plan_init", [vp, i32, i32, i64, i64, i32, i32, f64, vp,
+                                   vp]),
+            ("lanczos_plan_bind", [vp, vp, vp, vp, vp, vp, vp, vp, vp]),
+            ("lanczos_start_launch", [vp, vp]),
+            ("lanczos_sum_launch", [vp, i32, vp, i64, vp, i64, vp, i64]),
+            ("lanczos_project_launch", [vp, i32]),
+            ("lanczos_subtract_launch", [vp, i32, i32]),
+            ("lanczos_normalize_launch", [vp, i32]),
+            ("lanczos_combine_launch", [i32, vp, vp, vp, i64, i32, i32, vp])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = i32, args
+    lib.lanczos_launches.restype, lib.lanczos_launches.argtypes = i64, []
+    lib.bound = True
+    return lib
+
+
 # Every kernel's binding, by name (chip_smoke.py builds them all at once).
 LIBRARIES = {"bsr_spmm_flat": bsr_spmm_flat_library,
              "bcsr_spmm_ell": bcsr_spmm_ell_library,
-             "bsr_spmm_vres": bsr_spmm_vres_library}
+             "bsr_spmm_vres": bsr_spmm_vres_library,
+             "lanczos_step": lanczos_step_library}

@@ -86,3 +86,61 @@ def test_krylov_defaults_match_jax():
     for eta, nit in ((0.05, 150), (0.05, 20), (0.1, 100), (0.02, 2500)):
         assert t_default_m(eta, nit) == j_default_m(eta, nit)
     assert t_default_m(0.05, 150) == 10
+
+
+def test_cpu_takes_the_plain_recurrence_and_counts_its_steps(operator):
+    """A CPU tensor runs the plain version (counted as ``"plain"`` steps, no
+    kernel launch); a device without a kernel raises."""
+    A, V = operator
+    At, Vt = torch.from_numpy(A), torch.from_numpy(V)
+    n0 = te.lanczos_tridiag.launches
+    s0 = dict(te.lanczos_tridiag.route_steps)
+    got = te.lanczos_tridiag(lambda x: At @ x, Vt, 12)
+    assert te.lanczos_tridiag.route_steps == {"kernel": s0["kernel"],
+                                              "plain": s0["plain"] + 12}
+    assert te.lanczos_tridiag.launches == n0
+    want = te.lanczos_tridiag_reference(lambda x: At @ x, Vt, 12)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert te.lanczos_route(Vt.device) == "plain"
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        te.lanczos_tridiag(lambda x: x, torch.zeros((8, 2), device="meta"), 4)
+
+
+def test_operator_forms_are_the_callable(operator):
+    """LanczosOperator(f, s) and a SplitOperator compute, through the plain
+    version, exactly what the callable they replace computes: s * f(V), and
+    the split form's sum in its order (the products on V padded to nrows)."""
+    A, V = operator
+    At, Vt = torch.from_numpy(A), torch.from_numpy(V)
+    kw = dict(small_method="taylor_ss", norm_bound=2.0)
+    F1, s1 = te.lanczos_expm_multiply(
+        te.LanczosOperator(lambda x: At @ x, 0.5), Vt, 14, **kw)
+    F2, s2 = te.lanczos_expm_multiply(lambda x: 0.5 * (At @ x), Vt, 14, **kw)
+    assert torch.equal(F1, F2) and torch.equal(s1, s2)
+    rng = np.random.default_rng(1)
+    d, h = (torch.from_numpy(rng.standard_normal(60)) for _ in range(2))
+    Qm, Sm = (torch.from_numpy(rng.standard_normal((64, 64)) / 8)
+              for _ in range(2))
+    Qm = Qm + Qm.T
+    op = te.SplitOperator(d=d, h=h, products=(lambda P: Qm @ P,
+                                              lambda P: Sm @ P,
+                                              lambda P: Sm.T @ P),
+                          nrows=64, operand_dtype=torch.float64, scale=0.5)
+    X = torch.from_numpy(rng.standard_normal((60, 5)))
+    Xp = torch.cat([X, torch.zeros((4, 5), dtype=X.dtype)])
+    want = (d[:, None] * X + (Qm @ Xp)[:60]
+            + h[:, None] * (Sm @ Xp)[:60]
+            + (Sm.T @ torch.cat([h[:, None] * X,
+                                 torch.zeros((4, 5), dtype=X.dtype)]))[:60])
+    assert torch.equal(op(X), 0.5 * want)
+    assert torch.equal(te.LanczosOperator(op)(X), op(X))
+
+
+def test_combine_reference_is_the_sum_over_the_basis():
+    rng = np.random.default_rng(2)
+    Q = torch.from_numpy(rng.standard_normal((6, 40, 3)))
+    c = torch.from_numpy(rng.standard_normal((3, 6)))
+    F = te.lanczos_combine(Q, c)
+    assert F.shape == (40, 3)
+    np.testing.assert_allclose(F.numpy(), np.einsum("ikd,di->kd", Q.numpy(),
+                                                    c.numpy()), rtol=1e-12)

@@ -23,6 +23,7 @@ from sig_sdp_mmw_torch.core import ell as tell
 from sig_sdp_mmw_torch.models.mmw_ell import MMWEll
 from sig_sdp_mmw_torch.models.mmw_ell import mmw_solve_ell as t_solve
 from sig_sdp_mmw_torch.ops import bcsr as tb
+from sig_sdp_mmw_torch.parallel.mesh import MeshAxis
 from torch_jax_parity import JaxDraws, jax_fields
 from torch_jax_parity import one_torch_thread  # noqa: F401  (autouse)
 
@@ -158,3 +159,71 @@ def test_mmwell_pins_sketch_width_and_needs_prepare(state):
     assert alg._pinned_zpad[1] == 64 and alg.rounding_info[-1]["route"] == "batch"
     with pytest.raises(ValueError, match="rounding must be"):
         MMWEll(rounding="host")
+
+
+class _WholeAxis(MeshAxis):
+    """A graph axis that claims two ranks but holds every row in this one
+    process: the solver takes its sharded path's generic Lanczos operator
+    (``L_apply``, then the gather, here the rows themselves) with one
+    process's arithmetic."""
+
+    def rows(self, n):
+        return 0, n
+
+    def gather_rows(self, local, n, unit=1):
+        return local
+
+    def sum_over(self, partial):
+        return partial
+
+    def max_over(self, x):
+        return x
+
+
+@pytest.mark.parametrize("dt,backend", [("float32", "flat"),
+                                        ("float64", "flat"),
+                                        ("float32", "ell"),
+                                        ("float64", "ell")])
+def test_split_operator_is_the_generic_apply(monkeypatch, dt, backend):
+    """On one process the solver hands the Lanczos steps its operator split
+    into parts (SplitOperator, the scale 0.5 among them); through the plain
+    version that gives the same y as ``0.5 * L_apply(V)`` (the generic form
+    the sharded path takes, LanczosOperator), bit for bit, and the same
+    X_half and ub_final for a whole solve at cell 8 (bfloat16 blocks with a
+    float32 state, float64 blocks with a float64 one; or the ELL state)."""
+    from sig_sdp_mmw_torch.env.large import generate_large_state_csr as gen
+    from sig_sdp_mmw_torch.models import mmw_ell as tm
+    from sig_sdp_mmw_torch.ops import expm as te
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    dtype = getattr(torch, dt)
+    S, Q, h = gen(8, 75e-4, seed=2)
+    e = tell.ell_from_scipy(S, Q, h, dtype=np.float32 if dt == "float32"
+                            else np.float64)
+    ops = None
+    if backend == "flat":
+        ops = tb.bcsr_operands_from_state(
+            S, Q, block=128, store_transpose=True, flat_group=4,
+            dtype=torch.bfloat16 if dt == "float32" else dtype)
+    seen = []
+    real = tm.lanczos_expm_multiply
+
+    def recording(op, V, *a, **kw):
+        seen.append((op, V))
+        return real(op, V, *a, **kw)
+
+    monkeypatch.setattr(tm, "lanczos_expm_multiply", recording)
+    kw = dict(nit=6, eta=0.05, D_pad=32, rank_pad=32, lanczos_m=8, bcsr=ops)
+    split = t_solve(e, 9.0, draws=TorchDraws(3, "cpu", stream=1), **kw)
+    generic = t_solve(e, 9.0, draws=TorchDraws(3, "cpu", stream=1),
+                      graph=_WholeAxis(size=2), **kw)
+    (op_s, G), (op_g, G2) = seen[0], seen[6]
+    assert isinstance(op_s, te.SplitOperator) and op_s.scale == 0.5
+    assert isinstance(op_g, te.LanczosOperator) and op_g.scale == 0.5
+    assert torch.equal(G, G2) and G.dtype == dtype
+    V = torch.randn(G.shape, dtype=dtype,
+                    generator=torch.Generator().manual_seed(0))
+    for X in (G, V):
+        assert torch.equal(op_s(X), op_g(X))
+    assert torch.equal(split.X_half, generic.X_half)
+    assert torch.equal(split.ub_final, generic.ub_final)
