@@ -96,7 +96,8 @@ class EllState(TensorFields):
 class EllSlim(TensorFields):
     """The [Kp] and [E_pad] vectors of :class:`EllState` that the
     block-native solver reads; ``S_sum``/``row2`` are the S̃ row sums and
-    squared row sums."""
+    squared row sums.  The binary search's degree bounds are kept as host
+    integers (it holds no pattern to count them from)."""
 
     S_sum: torch.Tensor   # [Kp]
     row2: torch.Tensor    # [Kp]
@@ -106,6 +107,10 @@ class EllSlim(TensorFields):
     h_max: torch.Tensor   # [Kp]
     mask: torch.Tensor    # [Kp] bool
     K: int
+    # As EllState's: max association degree + 1, and max distinct
+    # off-diagonal pattern entries of S, S^T and Q in a row + 2.
+    lb_cache: int = -1
+    ub_cache: int = -1
 
     @property
     def Kp(self) -> int:
@@ -115,14 +120,31 @@ class EllSlim(TensorFields):
     def E_pad(self) -> int:
         return self.a_i.shape[0]
 
+    def degree_bounds(self) -> Tuple[int, int]:
+        """(lb, ub) for the binary search over Z, as
+        :meth:`EllState.degree_bounds` gives them."""
+        if self.lb_cache < 0 or self.ub_cache < 0:
+            raise ValueError("EllSlim has no degree bounds: build it with "
+                             "ell_slim_from_csr or ell_slim")
+        return max(self.lb_cache, 2), max(self.ub_cache, 2, self.lb_cache)
+
+    def asso_lower_bound(self) -> int:
+        """lb = max association degree + 1."""
+        if self.lb_cache < 0:
+            raise ValueError("EllSlim has no degree bounds: build it with "
+                             "ell_slim_from_csr or ell_slim")
+        return self.lb_cache
+
 
 def ell_slim(ell: EllState) -> EllSlim:
     """Slim view of a built EllState (reductions over s_vals on its
-    device)."""
+    device; the degree bounds are the state's)."""
     return EllSlim(S_sum=torch.sum(ell.s_vals, dim=1),
                    row2=torch.sum(ell.s_vals * ell.s_vals, dim=1),
                    a_i=ell.a_i, a_j=ell.a_j, a_mask=ell.a_mask,
-                   h_max=ell.h_max, mask=ell.mask, K=ell.K)
+                   h_max=ell.h_max, mask=ell.mask, K=ell.K,
+                   lb_cache=ell.asso_lower_bound(),
+                   ub_cache=ell.degree_bounds()[1])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -161,10 +183,26 @@ def ell_slim_from_csr(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
     hm[:K] = np.asarray(h_max, dtype)
     mask = np.zeros(Kp, bool)
     mask[:K] = True
+    lb, ub = _host_degree_bounds(St, Q)
     t = torch.from_numpy
     return EllSlim(S_sum=t(S_sum), row2=t(row2), a_i=t(a_i), a_j=t(a_j),
                    a_mask=t(a_mask), h_max=t(hm), mask=t(mask),
-                   K=K).to(device)
+                   K=K, lb_cache=lb, ub_cache=ub).to(device)
+
+
+def _host_degree_bounds(St, Q) -> Tuple[int, int]:
+    """(lb, ub) caches from the host CSR: S̃ (``St``) and Q (same semantics
+    as the array-based :meth:`EllState.degree_bounds` fallback)."""
+    import scipy.sparse
+
+    Qu = scipy.sparse.triu(Q, k=1).tocsr()
+    Qb = (Qu + Qu.T).tocsr()
+    Qb.data = np.ones_like(Qb.data)
+    lb = int(np.diff(Qb.indptr).max(initial=0)) + 1
+    P = St.copy()
+    P.data = np.ones_like(P.data)
+    U = (P + P.T + Qb).tocsr()
+    return lb, int(np.diff(U.indptr).max(initial=0)) + 2
 
 
 def _csr_gather(M, rows, cols):
@@ -205,8 +243,6 @@ def ell_from_scipy(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
                    device="cpu") -> EllState:
     """Build the ELL state from the CSR ``(S, Q, h_max)`` on the host, then
     move it to ``device``."""
-    import scipy.sparse
-
     S = S_csr.tocsr()
     Q = Q_csr.tocsr()
     K = S.shape[0]
@@ -278,16 +314,8 @@ def ell_from_scipy(S_csr, Q_csr, h_max, pad_rows_to: Optional[int] = None,
     mask = np.zeros(Kp, bool)
     mask[:K] = True
 
-    # Binary-search bounds from the host CSR (same semantics as the
-    # array-based degree_bounds() fallback).
-    Qu_pat = scipy.sparse.triu(Q, k=1).tocsr()
-    Qb = (Qu_pat + Qu_pat.T).tocsr()
-    Qb.data = np.ones_like(Qb.data)
-    lb_cache = int(np.diff(Qb.indptr).max(initial=0)) + 1
-    Pp = St.copy()
-    Pp.data = np.ones_like(Pp.data)
-    U = (Pp + Pp.T + Qb).tocsr()
-    ub_cache = int(np.diff(U.indptr).max(initial=0)) + 2
+    # Binary-search bounds from the host CSR.
+    lb_cache, ub_cache = _host_degree_bounds(St, Q)
 
     t = torch.from_numpy
     return EllState(

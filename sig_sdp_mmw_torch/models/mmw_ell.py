@@ -31,7 +31,9 @@ a profiler runs): ``mmw_ell.solve`` around a call, with its
 iteration's ``mmw_ell.dual``, ``mmw_ell.loss``, ``mmw_ell.sketch``,
 ``mmw_ell.expm`` (its ``lanczos`` attribute ``"kernel"`` where the
 Lanczos steps run as the hand-written passes, ``"plain"`` elsewhere),
-``mmw_ell.primal`` and ``mmw_ell.gram``, then
+``mmw_ell.primal`` and ``mmw_ell.gram`` (its ``mode`` the route of
+:func:`gram_route`; timed on a card on the ``"edge"`` route, one batched
+product and one ``index_add_`` per slot), then
 ``mmw_ell.factor`` (the bound and the factorisation; timed on a card).
 With block operands each product of a block operand is a
 ``bcsr.spmm`` span, its ``operand`` named as
@@ -66,7 +68,10 @@ from sig_sdp_mmw_torch.utils.tensors import TensorFields
 @dataclasses.dataclass(frozen=True)
 class MMWEllOutput(TensorFields):
     X_half: torch.Tensor    # [Kp, rank_pad]
-    ub_final: torch.Tensor  # scalar
+    ub_final: torch.Tensor  # scalar, the largest of ub_parts
+    # [3]: the averaged primal's worst violation of the diagonal, the
+    # association and the budget constraints (-inf with no association).
+    ub_parts: torch.Tensor
     gap_log: torch.Tensor   # [nit, 2] (UB, LB) if log_gap else [0, 2]
 
 
@@ -86,10 +91,36 @@ def _edge_dots(cols, X_rows, X_half, inv_trace):
     return out
 
 
+def _masked_maxes(*pairs):
+    """[len(pairs)]: each vector's max over the entries where its mask
+    holds."""
+    return torch.stack([torch.max(torch.where(m, v, -torch.inf))
+                        for v, m in pairs])
+
+
 def _masked_max(*pairs):
     """max over the entries of each vector where its mask holds."""
-    return torch.max(torch.stack([torch.max(torch.where(m, v, -torch.inf))
-                                  for v, m in pairs]))
+    return torch.max(_masked_maxes(*pairs))
+
+
+def gram_route(bcsr, gram_mode: str = "auto"):
+    """(mode, slots) of the averaged primal's accumulation on the S̃
+    pattern in :func:`mmw_solve_ell`: ``"block"`` or ``"edge"`` with block
+    operands ``bcsr`` (``"auto"``: block if its float32 accumulator, of the
+    whole operand, is at most 2 GiB), ``"ell"`` without; ``slots`` is the
+    block operand's slots a block-row (the edge route's batched products
+    and ``index_add_`` calls an iteration), 0 without."""
+    if gram_mode not in ("auto", "block", "edge"):
+        raise ValueError(
+            f"gram_mode must be 'auto', 'block' or 'edge', got {gram_mode!r}")
+    if bcsr is None:
+        return "ell", 0
+    sb = bcsr.s_blocks
+    maxblk = sb.bcols.shape[1]
+    if gram_mode == "auto":
+        small = sb.ncols * maxblk * sb.B * 4 <= 2 * 2**30
+        gram_mode = "block" if small else "edge"
+    return gram_mode, maxblk
 
 
 @solve_span("mmw_ell.solve")
@@ -124,9 +155,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     rank's rows; every O(K) vector and [Kp, D] block is replicated, the
     same bits on every rank.  None: one process (the whole operator).
 
-    ``gram_mode`` — how the averaged primal accumulates on the S̃ pattern:
-    ``"block"``, a float32 [Kbr, Br, maxblk*Bc] accumulator updated by one
-    batched product per iteration; ``"edge"``, the O(nnz) per-edge vector of
+    ``gram_mode`` — how the averaged primal accumulates on the S̃ pattern
+    (:func:`gram_route`): ``"block"``, a float32 [Kbr, Br, maxblk*Bc]
+    accumulator updated by one batched product per iteration; ``"edge"``,
+    the O(nnz) per-edge vector of
     :func:`sig_sdp_mmw_torch.ops.bcsr.bcsr_edge_gram_accum`; ``"auto"``,
     block if that accumulator (of the whole operand) is at most 2 GiB.
 
@@ -171,15 +203,10 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         maxblk = sb.bcols.shape[1]
         maxblkQ = bcsr.q_bcols.shape[1]
         nnz_s = bcsr.nnz            # of the rows held
-        if gram_mode not in ("auto", "block", "edge"):
-            raise ValueError(
-                f"gram_mode must be 'auto', 'block' or 'edge', got {gram_mode!r}")
-        if gram_mode == "auto":
-            block_gram = nunits * Brow * maxblk * Bcol * 4 <= 2 * 2**30
-        else:
-            block_gram = gram_mode == "block"
     else:
         nrows, unit, nunits = Kp, 1, Kp
+    gram, _ = gram_route(bcsr, gram_mode)
+    block_gram = gram == "block"
     r0, r1 = graph.rows(nunits)
     nloc = r1 - r0                  # block-rows (rows) held
     if use_bcsr and sb.Kb != nloc:
@@ -453,7 +480,7 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         if use_bcsr:
             key = "avg_blocks" if block_gram else "avg_edge"
             new[key] = c[key]
-        with span("mmw_ell.gram"):
+        with span("mmw_ell.gram", timed=gram == "edge", mode=gram):
             if use_bcsr and i < nit - 1:
                 Xr = Xp[rows].reshape(nloc, Brow, D_pad)
                 Xc = Xp.reshape(Kbc, Bcol, D_pad)
@@ -483,12 +510,13 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
     with span("mmw_ell.factor", timed=True):
         avg_mdiag = c["avg_mdiag"] / nit
         avg_F = c["avg_F"] / nit
-        ub_final = mmw_ell_ub_from_carry(ell, Z, c, nit)
+        ub_parts = mmw_ell_ub_parts(ell, Z, c, nit)
+        ub_final = torch.max(ub_parts)
 
         if not factorize:
             return MMWEllOutput(
                 X_half=torch.zeros((Kp, rank_pad), dtype=dtype, device=device),
-                ub_final=ub_final, gap_log=c["gap"])
+                ub_final=ub_final, ub_parts=ub_parts, gap_log=c["gap"])
 
         if use_bcsr:
             nslots = nloc * maxblk * Brow * Bcol
@@ -553,7 +581,8 @@ def mmw_solve_ell(ell, Z, *, nit: int, eta: float, rank_radio: int = 2,
         X_half = torch.where(
             keep, (Qb @ Vb[:, order]) * torch.sqrt(w_sel)[None, :], 0.0)
         X_half = torch.where(mask[:, None], X_half, 0.0)
-        return MMWEllOutput(X_half=X_half, ub_final=ub_final, gap_log=c["gap"])
+        return MMWEllOutput(X_half=X_half, ub_final=ub_final,
+                            ub_parts=ub_parts, gap_log=c["gap"])
 
 
 def mmw_ell_ub_from_carry(ell, Z, carry, n) -> torch.Tensor:
@@ -562,6 +591,13 @@ def mmw_ell_ub_from_carry(ell, Z, carry, n) -> torch.Tensor:
     convergence curve at segment boundaries for O(Kp + E) vector math, and
     the solver's own ``ub_final`` at n = nit.  ``ell``: EllState or
     EllSlim."""
+    return torch.max(mmw_ell_ub_parts(ell, Z, carry, n))
+
+
+def mmw_ell_ub_parts(ell, Z, carry, n) -> torch.Tensor:
+    """[3]: the n-iteration averaged primal's worst violation of the
+    diagonal, the association and the budget constraints, whose max is
+    :func:`mmw_ell_ub_from_carry`."""
     avg_mdiag = carry["avg_mdiag"]
     dtype = avg_mdiag.dtype
     Zf = torch.tensor(float(Z), dtype=dtype, device=avg_mdiag.device)
@@ -580,7 +616,7 @@ def mmw_ell_ub_from_carry(ell, Z, carry, n) -> torch.Tensor:
           / (1.0 / (K * (Zf - 1.0)) + 0.5))
     eH = ((carry["avg_H"] / nf * (Zf - 1.0) / Zf - (ell.h_max - S_sum / Zf))
           / norm_H)
-    return _masked_max((eD, ell.mask), (eF, ell.a_mask), (eH, ell.mask))
+    return _masked_maxes((eD, ell.mask), (eF, ell.a_mask), (eH, ell.mask))
 
 
 class MMWEll(StatsObject):
@@ -595,6 +631,12 @@ class MMWEll(StatsObject):
     models.rounding_ell.rounding_ell`, on the route its Kp picks;
     ``"native"`` rounds through the C++ greedy scan on the host CSR state
     (:func:`rounding_native_csr`, the best attempt wins).
+
+    The state may be an :class:`sig_sdp_mmw_torch.core.ell.EllSlim` (no
+    O(K*deg) arrays on the device; the million-link scale) with
+    ``use_bcsr=True`` and ``rounding="native"``; the Gram takes the route
+    :func:`gram_route` picks (the edge route where the block accumulator
+    would pass 2 GiB, as at that scale).
     """
 
     def __init__(self, nit: int = 100, rank_radio: int = 2,
@@ -629,22 +671,36 @@ class MMWEll(StatsObject):
         # One record per rounding call: route, Z_pad, wavefront rounds.
         self.rounding_info = []
         # What the last solve ran as (:func:`sig_sdp_mmw_torch.models.mmw.
-        # solve_record`): Z, K, D_pad, rank_pad, the draws' stream, nit.
+        # solve_record`): Z, K, D_pad, rank_pad, the draws' stream, nit,
+        # and the Gram's route and slots (:func:`gram_route`).
         self.last_solve = None
 
     @staticmethod
     def _for_state(entry, ell) -> bool:
         return entry is not None and entry[0]() is ell
 
+    def _check_slim(self, ell):
+        """A slim state holds no ELL arrays: it needs the block operands
+        and the host rounding."""
+        if hasattr(ell, "s_vals"):
+            return
+        if not self.use_bcsr:
+            raise ValueError("EllSlim needs use_bcsr=True")
+        if self.rounding_mode != "native":
+            raise ValueError("EllSlim holds no ELL arrays for the device "
+                             "rounding: use rounding=\"native\"")
+
     def prepare(self, ell, S_csr, Q_csr, h_max=None, block: int = 128,
                 **bcsr_kw):
         """Keep the host CSR state (``S``, ``Q``, ``h_max`` — default
         ``ell.h_max``) for the rounding; with ``use_bcsr`` also build the
         block operands (``bcsr_kw`` as in
-        :func:`sig_sdp_mmw_torch.ops.bcsr.bcsr_operands_from_state`) on
+        :func:`sig_sdp_mmw_torch.ops.bcsr.bcsr_operands_from_state`, e.g.
+        ``weights_dtype=torch.bfloat16`` at the million-link scale) on
         ``ell``'s device."""
         from sig_sdp_mmw_torch.core.ell import build_st_csr
 
+        self._check_slim(ell)
         if h_max is None:
             h_max = ell.h_max[: ell.K].cpu().numpy()
         StT = build_st_csr(S_csr, Q_csr).transpose().tocsr()
@@ -699,8 +755,10 @@ class MMWEll(StatsObject):
             bcsr = self._bcsr[1]
         self._ncall += 1
         draws = TorchDraws(self.seed, ell.mask.device, stream=self._ncall)
-        self.last_solve = solve_record(float(Z), ell.K, D_pad, rank_pad,
-                                       draws, self.nit)
+        gram, slots = gram_route(bcsr)
+        self.last_solve = dict(solve_record(float(Z), ell.K, D_pad, rank_pad,
+                                            draws, self.nit),
+                               gram_mode=gram, maxblk=slots)
         out = mmw_solve_ell(ell, float(Z), nit=self.nit, eta=self.eta,
                             rank_radio=self.rank_radio, D_pad=D_pad,
                             rank_pad=rank_pad, draws=draws,
@@ -724,6 +782,7 @@ class MMWEll(StatsObject):
             default_z_pad_ell, rounding_ell, rounding_native_csr)
 
         nattempt = nattempt or self.nattempt
+        self._check_slim(ell)
         self._ncall += 1
         if self.rounding_mode == "device":
             z_pad = default_z_pad_ell(ell, Z)

@@ -227,3 +227,182 @@ def test_split_operator_is_the_generic_apply(monkeypatch, dt, backend):
         assert torch.equal(op_s(X), op_g(X))
     assert torch.equal(split.X_half, generic.X_half)
     assert torch.equal(split.ub_final, generic.ub_final)
+
+
+# ---- the slim state on the normal path (the million-link deployment) ------
+
+SLIM_KW = dict(nit=12, eta=0.05, use_bcsr=True, rounding="native",
+               nattempt=3, seed=2**31 + 5)
+
+
+def _port_state(cell, seed):
+    from sig_sdp_mmw_torch.env.large import generate_large_state_csr as gen
+
+    return gen(cell, 75e-4, seed=seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slim_degree_bounds_equal_the_full_state(seed):
+    """The slim state's cached bounds (host CSR, at build) are the full
+    state's, and the slim view of a full state keeps them."""
+    S, Q, h = _port_state(8, seed)
+    full = tell.ell_from_scipy(S, Q, h)
+    slim = tell.ell_slim_from_csr(S, Q, h)
+    assert slim.degree_bounds() == full.degree_bounds()
+    assert slim.asso_lower_bound() == full.asso_lower_bound()
+    view = tell.ell_slim(full)
+    assert view.degree_bounds() == full.degree_bounds()
+    import dataclasses
+
+    with pytest.raises(ValueError, match="degree bounds"):
+        dataclasses.replace(slim, lb_cache=-1).degree_bounds()
+
+
+class _Probes:
+    """The search's feasibility check: ``MMWEll``, each probe's Z, rem,
+    bound and sketches recorded."""
+
+    def __init__(self, alg):
+        self.alg, self.seen = alg, []
+
+    def run_with_state(self, it, Z, state):
+        ok, gX = self.alg.run_with_state(it, Z, state)
+        out = self.alg.last_output
+        self.solved = dict(Z=int(Z), ub=float(out.ub_final),
+                           parts=out.ub_parts.tolist(),
+                           stream=self.alg._ncall, D_pad=self.alg._pinned[1])
+        return ok, gX
+
+    def rounding(self, Z, gX, state):
+        z, Zr, rem = self.alg.rounding(Z, gX, state)
+        self.seen.append(dict(self.solved, rem=int(rem)))
+        return z, Zr, rem
+
+
+def _search(state, S, Q, h):
+    from sig_sdp_mmw_torch.models.search import BinarySearchRelaxation
+
+    alg = MMWEll(**SLIM_KW)
+    alg.prepare(state, S, Q, h_max=h, block=128, dtype=torch.bfloat16,
+                store_transpose=True, weights_dtype=torch.bfloat16)
+    bs = BinarySearchRelaxation()
+    bs.feasibility_check_alg = probes = _Probes(alg)
+    _, Z, rem = bs.run(state)
+    return Z, rem, probes.seen, alg
+
+
+def test_slim_search_matches_the_full_state():
+    """The binary search on the slim state, through ``MMWEll`` with the
+    host rounding, probes what the full state probes and returns its Z;
+    each probe's bound and its three parts agree to 1e-6 relative (the
+    slim state's S̃ row sums are float64 sums cast to float32, the full
+    state's float32 sums over its ELL rows: other roundings of the same
+    numbers), and the bound is the largest part.  The probe at the
+    smallest Z is the reference's float64 solve with the same sketches and
+    bfloat16 products, its bound and each part to the sig1m cell's ub_gap
+    limit."""
+    import json
+    import os
+
+    from portbench.reference import mmw as ref
+    from portbench.reference.ub_parts import ub_parts
+    from sig_sdp_mmw_torch.models.mmw_ell import gram_route
+
+    S, Q, h = _port_state(10, 3)
+    Kp = 384                                   # K=300 in 128-row blocks
+    slim = tell.ell_slim_from_csr(S, Q, h, pad_rows_to=Kp)
+    full = tell.ell_from_scipy(S, Q, h, pad_rows_to=Kp)
+    Zs, rs, ps, alg = _search(slim, S, Q, h)
+    Zf, rf, pf, _ = _search(full, S, Q, h)
+    assert (Zs, rs) == (Zf, rf) and rs == 0 and len(ps) >= 3
+    assert [(p["Z"], p["rem"]) for p in ps] == [(p["Z"], p["rem"])
+                                                for p in pf]
+    for a, b in zip(ps, pf):
+        assert abs(a["ub"] - b["ub"]) <= 1e-6 * abs(b["ub"])
+        assert a["ub"] == max(a["parts"])
+        np.testing.assert_allclose(a["parts"], b["parts"], rtol=1e-6)
+    assert alg.last_solve["gram_mode"] == gram_route(alg.bcsr)[0]
+    assert alg.last_solve["maxblk"] == alg.bcsr.s_blocks.bcols.shape[1]
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "portbench", "workloads",
+            "sig1m.probe.json")) as f:
+        limit = json.load(f)["checks"]["ub_gap"]
+    a = min(ps, key=lambda p: p["Z"])
+    kw = dict(nit=SLIM_KW["nit"], eta=SLIM_KW["eta"], rank_radio=2, Kp=Kp,
+              D_pad=a["D_pad"], seed=SLIM_KW["seed"], stream=a["stream"],
+              device="cpu", low="bfloat16")
+    St, edges = ref.s_tilde(S, Q), ref.assoc_edges(Q)
+    want = ref.ub_final(St, edges, h, a["Z"], **kw)
+    parts = ub_parts(St, edges, h, a["Z"], **kw)
+    assert max(parts) == want
+    assert abs(a["ub"] - want) <= limit
+    assert max(abs(g - w) for g, w in zip(a["parts"], parts)) <= limit
+
+
+def test_slim_state_refuses_the_device_rounding():
+    """A slim state holds no ELL arrays: the device rounding (the default)
+    and a solver without block operands are refused, naming the way."""
+    S, Q, h = _port_state(8, 1)
+    slim = tell.ell_slim_from_csr(S, Q, h, pad_rows_to=256)
+    with pytest.raises(ValueError, match='rounding="native"'):
+        MMWEll(use_bcsr=True).prepare(slim, S, Q, h_max=h, block=128)
+    with pytest.raises(ValueError, match="use_bcsr"):
+        MMWEll(rounding="native").prepare(slim, S, Q, h_max=h)
+    X = torch.zeros((slim.Kp, 32))
+    with pytest.raises(ValueError, match='rounding="native"'):
+        MMWEll(use_bcsr=True).rounding(9, X, slim)
+
+
+@pytest.mark.parametrize("gram_mode", ["edge", "block"])
+def test_gram_span_names_its_route(monkeypatch, gram_mode):
+    """``mmw_ell.gram`` carries its route (``mode``) and is timed on the
+    edge route only, so the block route records no timing events."""
+    from sig_sdp_mmw_torch.models import mmw_ell as tm
+    from sig_sdp_mmw_torch.utils import profiling
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    S, Q, h = _port_state(8, 2)
+    slim = tell.ell_slim_from_csr(S, Q, h, pad_rows_to=256)
+    ops = tb.bcsr_operands_from_state(S, Q, block=128, store_transpose=True,
+                                      dtype=torch.bfloat16)
+    opened = []
+    real = tm.span
+
+    def spy(name, timed=False, **attrs):
+        if name == "mmw_ell.gram":
+            opened.append((timed, attrs["mode"]))
+        return real(name, timed, **attrs)
+
+    monkeypatch.setattr(tm, "span", spy)
+    with profiling.tracing():
+        t_solve(slim, 9.0, nit=3, eta=0.05, D_pad=32, rank_pad=32,
+                draws=TorchDraws(1), bcsr=ops, gram_mode=gram_mode)
+    grams = [s for s in profiling.spans() if s.name == "mmw_ell.gram"]
+    assert [s.attrs["mode"] for s in grams] == [gram_mode] * 3
+    assert opened == [(gram_mode == "edge", gram_mode)] * 3
+    assert tm.gram_route(ops, "auto") == ("block",
+                                          ops.s_blocks.bcols.shape[1])
+    assert tm.gram_route(None) == ("ell", 0)
+    with pytest.raises(ValueError, match="gram_mode"):
+        tm.gram_route(ops, "dense")
+
+
+def test_slim_gram_routes_agree():
+    """On a slim state the edge Gram and the block Gram accumulate the same
+    averaged primal: the same bound and parts (read before the Gram), and
+    the factor to float32's rounding of two summation orders."""
+    from sig_sdp_mmw_torch.utils.draws import TorchDraws
+
+    S, Q, h = _port_state(8, 4)
+    slim = tell.ell_slim_from_csr(S, Q, h, pad_rows_to=256)
+    ops = tb.bcsr_operands_from_state(S, Q, block=128, store_transpose=True,
+                                      dtype=torch.bfloat16,
+                                      weights_dtype=torch.bfloat16)
+    out = {g: t_solve(slim, 9.0, nit=4, eta=0.05, D_pad=32, rank_pad=32,
+                      draws=TorchDraws(7), bcsr=ops, gram_mode=g)
+           for g in ("edge", "block")}
+    e, b = out["edge"], out["block"]
+    assert torch.equal(e.ub_parts, b.ub_parts)
+    assert torch.equal(e.ub_final, torch.max(e.ub_parts))
+    G = lambda o: o.X_half @ o.X_half.T              # noqa: E731
+    torch.testing.assert_close(G(e), G(b), rtol=1e-4, atol=1e-5)

@@ -233,7 +233,7 @@ def test_block_solve_spans_nest_and_count_the_products(large, tmp_path):
     assert solve.parent is None and solve.root == solve.id
     assert solve.attrs == alg.last_solve
     assert set(solve.attrs) == {"Z", "K", "D_pad", "rank_pad", "stream",
-                                "nit"}
+                                "nit", "gram_mode", "maxblk"}
     names = collections.Counter(s.name for s in kids[solve.id])
     phases = ("dual", "loss", "sketch", "expm", "primal", "gram")
     assert names == {**{f"mmw_ell.{p}": NIT for p in phases},

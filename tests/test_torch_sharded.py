@@ -213,7 +213,9 @@ def test_ell_from_sig_state_and_slim_match_jax(mmw_small):
         else:
             assert a == b, f.name
     sj, st = jell.ell_slim(ej), tell.ell_slim(et)
-    for f in dataclasses.fields(st):
+    # The port's slim state also keeps the search's degree bounds.
+    assert st.degree_bounds() == et.degree_bounds()
+    for f in dataclasses.fields(sj):
         a, b = getattr(st, f.name), getattr(sj, f.name)
         if isinstance(a, torch.Tensor):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
